@@ -10,7 +10,9 @@ LU and forward sensitivities by internal differentiation
 (``solve.solve_radau``, ``solve.solve_ivp(method='radau*')``), with the
 pivot-free stage factor/solve running through the hand-written CUDA kernels
 of ``ops/smalllu.py`` when ``Options(kernel_lu=True)`` and the tensors lie
-on a CUDA device.
+on a CUDA device; the fused Radau5 solve ``solve.solve_ivp(method=
+'radau_fused')``, whose whole step attempt per lane is the CUDA kernel of
+``ops/radau_fused.py``; and the fused small solve ``ops.linsolve_fused``.
 
 Precision: f32 contractions must not be demoted to TF32 on the card (a
 demoted contraction stalls the f32 Newton) — the role of the reference's

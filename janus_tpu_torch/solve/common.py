@@ -111,6 +111,20 @@ def tree_leaves(tree):
     return out
 
 
+def tree_flatten(tree):
+    """(leaves, unflatten): unflatten(new_leaves) rebuilds tree's structure
+    with new_leaves in the order of ``tree_leaves`` (insertion order of
+    dicts, where the reference sorts keys; a flatten and its unflatten
+    agree, which is all the callers need)."""
+    leaves = tree_leaves(tree)
+
+    def unflatten(new_leaves):
+        it = iter(new_leaves)
+        return tree_map(lambda _: next(it), tree)
+
+    return leaves, unflatten
+
+
 def like(x, ref):
     """x as a tensor of ref's dtype on ref's device. A tensor already on
     another device is refused, never copied."""

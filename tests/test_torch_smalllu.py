@@ -9,6 +9,10 @@
   lu_solve_t_ref) against the Pallas kernels in interpret mode and against
   numpy, with a ragged M = 700: f64 rtol 1e-12; f32 rtol 1e-5 (the Pallas
   kernel multiplies by a reciprocal where the twin divides).
+- The twin of K3 (ops.smalllu.linsolve_fused_ref) against the Pallas
+  linsolve_fused in interpret mode (same arithmetic: f64 rtol 1e-12, f32
+  rtol 1e-5 relative to the largest entry), against numpy and against the
+  K1+K2 twins, d ∈ {2,3,4,6}, M = 700.
 - The kernel wrappers run the twin only for CPU tensors and count no launch
   there; any other device raises.
 - ``import janus_tpu_torch`` loads no jax.
@@ -26,6 +30,7 @@ import pytest
 import torch
 
 from janus_tpu.linalg import smalllu as ref_lu
+from janus_tpu.ops.smalllu_pallas import linsolve_fused as pallas_fused
 from janus_tpu.ops.smalllu_pallas import lu_factor_t as pallas_factor_t
 from janus_tpu.ops.smalllu_pallas import lu_solve_t as pallas_solve_t
 from janus_tpu_torch.linalg import smalllu as port_lu
@@ -96,6 +101,33 @@ def test_twins_match_pallas_and_numpy(rng, d, dtype):
                                rtol=100 * rtol, atol=100 * rtol)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("d", [2, 3, 4, 6])
+def test_linsolve_fused_twin_matches_pallas_and_numpy(rng, d, dtype):
+    m = 700                               # not a multiple of the 512 tile
+    rtol = {"float32": 1e-5, "float64": 1e-12}[dtype]
+    a = rng.standard_normal((m, d, d)) + 5.0 * np.eye(d)
+    b = rng.standard_normal((m, d))
+    a_t = np.ascontiguousarray(a.transpose(1, 2, 0).reshape(d * d, m)
+                               ).astype(dtype)
+    b_t = np.ascontiguousarray(b.T).astype(dtype)
+
+    x_twin = port_ops.linsolve_fused_ref(torch.from_numpy(a_t),
+                                         torch.from_numpy(b_t)).numpy()
+    x_pl = np.asarray(pallas_fused(jnp.asarray(a_t), jnp.asarray(b_t),
+                                   interpret=True))
+    scale = np.abs(x_pl).max()
+    np.testing.assert_allclose(x_twin, x_pl, rtol=rtol, atol=rtol * scale)
+    # the K1+K2 twins solve the same systems (test_pallas_ops.py's check)
+    lu = port_ops.lu_factor_t_ref(torch.from_numpy(a_t))
+    x_k12 = port_ops.lu_solve_t_ref(lu, torch.from_numpy(b_t)).numpy()
+    np.testing.assert_allclose(x_twin, x_k12, rtol=10 * rtol,
+                               atol=10 * rtol * scale)
+    expect = np.linalg.solve(a, b[..., None])[..., 0]
+    np.testing.assert_allclose(x_twin.T.astype(np.float64), expect,
+                               rtol=100 * rtol, atol=100 * rtol)
+
+
 def test_wrappers_take_twin_only_on_cpu(rng):
     d, m = 3, 50
     a_t = torch.from_numpy(rng.standard_normal((d * d, m)))
@@ -104,6 +136,10 @@ def test_wrappers_take_twin_only_on_cpu(rng):
     port_ops.reset_launch_counts()
     lu = port_ops.lu_factor_t(a_t)
     x = port_ops.lu_solve_t(lu, b_t)
+    xf = port_ops.linsolve_fused(a_t, b_t)
+    torch.testing.assert_close(xf, port_ops.linsolve_fused_ref(a_t, b_t),
+                               rtol=0, atol=0)
+    assert port_ops.linsolve_fused.launches == 0
     torch.testing.assert_close(lu, port_ops.lu_factor_t_ref(a_t), rtol=0,
                                atol=0)
     torch.testing.assert_close(x, port_ops.lu_solve_t_ref(lu, b_t), rtol=0,
@@ -116,6 +152,8 @@ def test_wrappers_take_twin_only_on_cpu(rng):
         port_ops.lu_factor_t(a_t.to("meta"))
     with pytest.raises(ValueError, match="expected CUDA"):
         port_ops.lu_solve_t(lu.to("meta"), b_t.to("meta"))
+    with pytest.raises(ValueError, match="expected CUDA"):
+        port_ops.linsolve_fused(a_t.to("meta"), b_t.to("meta"))
     with pytest.raises(ValueError, match="D·D"):
         port_ops.lu_factor_t(torch.zeros(5, m, dtype=torch.float64))
 
@@ -123,7 +161,8 @@ def test_wrappers_take_twin_only_on_cpu(rng):
 def test_import_leaves_jax_out():
     code = ("import sys, janus_tpu_torch, janus_tpu_torch.interop, "
             "janus_tpu_torch.ops._build, janus_tpu_torch.models, "
-            "janus_tpu_torch.linalg\n"
+            "janus_tpu_torch.linalg, janus_tpu_torch.ops.radau_fused, "
+            "janus_tpu_torch.solve.radau_fused\n"
             "bad = [k for k in sys.modules if k.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'janus_tpu')]\n"
             "assert not bad, bad\n")

@@ -13,7 +13,10 @@ Phases, one line each (everything is made from fixed seeds):
    rtol 1e-12 and f32 at rtol 1e-5, each relative to the largest entry of
    the twin's result (the kernels are built without FMA contraction and
    agree to the bit; the bound leaves room for another operation order);
-   each kernel's time next to its twin's (CUDA events);
+   each kernel's time next to its twin's (CUDA events), next to its bound
+   (the bytes it must move over the card's memory rate) and next to the
+   PyTorch call that computes the same function (torch.linalg.lu_factor
+   with pivot=False, lu_solve), at D=4, M=65,536 f64;
 4. headline f64: bench.py's configuration through the port -- 65,536 stiff
    Van der Pol lanes (mu = 1e3, t in [0, 1]), Radau IIA s=5, rtol 1e-6,
    atol 1e-9, pivot-free stage LU through K1/K2, analytic Jacobian, K = 2
@@ -27,24 +30,37 @@ Phases, one line each (everything is made from fixed seeds):
    1e-6 absolute);
 6. headline f32 with compensated accumulation: finite, success >= 0.99;
 7. K3 (linsolve_fused) against its twin, shapes and tolerances as phase 3,
-   its time at D=4, M=65,536 f64 next to the twin's; then the public op
+   its time at D=4, M=65,536 f64 next to the twin's, its bound and the
+   pivoted torch.linalg.solve; then the public op
    janus_tpu_torch.ops.linsolve_fused once, counting its launches;
-8. K4 (radau5_step), one attempt (max_attempts=1) on the packed state of
-   the 65,536 headline lanes, initial and after five attempts, against
-   _step_ref on the card: flags and counters equal on >= 99.9% of lanes,
-   value rows within f64 1e-12 / f32 1e-5 of each row's largest entry; the
-   time of one launch next to one twin attempt;
+8. K4 (radau5_step): its registers and local bytes per instantiation
+   (cudaFuncGetAttributes) and ptxas's spill bytes (the build's report),
+   the shared memory it keeps per lane, resident
+   warps per SM (occupancy query) and the waves 65,536 lanes take; one
+   attempt (max_attempts=1) on the packed state of the 65,536 headline
+   lanes, initial and after five attempts, against _step_ref on the card:
+   every flag, counter and value row equal to the bit; the time of one
+   launch next to one twin attempt;
 9. radau_fused headline f64: the same lanes as phase 4 through
    solve_ivp(..., method='radau_fused'), Radau5, rtol 1e-6, atol 1e-9:
    success 1.0, K4 launches and host syncs of that solve, seconds per solve
-   (median of 3 after a warm-up); the twin loop on the card (y within rtol
-   1e-5) and the eager solve_ivp('radau5', kernel_lu=True) (y within 1e-6
-   relative plus 1e-9 absolute), each with its time;
+   (median of 3 after a warm-up); K4's time per solve and per attempt
+   (CUDA events around each call of the K4 wrapper, median of 3) beside
+   its bound (the operations of the attempts and Newton trips the run's
+   counters record over the card's f64 rate); the warp efficiency of the
+   per-lane attempt and Newton-trip counts (sum / (32 x sum over warps of
+   the warp's largest)); the twin loop on the card (y equal to the bit) and
+   the eager solve_ivp('radau5', kernel_lu=True) (y within 1e-6 relative
+   plus 1e-9 absolute), each with its time; then 4 x 65,536 copies of the
+   headline lanes: success 1.0, every copy's y equal to the headline's,
+   K4's device time;
 10. radau_fused with mu = logspace(1, 3, 65536): success 1.0, 8 lanes
-    against scipy as phase 5;
+    against scipy as phase 5, K4's device time and the warp efficiency;
 11. radau_fused on Robertson (D=3), 4,096 lanes, tf = logspace(-2, 2):
-    success 1.0, y within rtol 1e-5 of the twin loop;
-12. radau_fused f32 at rtol 1e-4, atol 1e-7: finite, success >= 0.99.
+    success 1.0, y and counters equal to the twin loop's to the bit, K4's
+    device time;
+12. radau_fused f32 at rtol 1e-4, atol 1e-7: finite, success >= 0.99, K4's
+    device time.
 
 Then one JSON line with the kernels' records, nvidia-smi's line, and last
 {"ok": true, "device": {...}}. Any failed check raises; no phase's failure
@@ -68,22 +84,10 @@ def _fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def _events_ms(fn, reps):
-    """Mean device milliseconds of fn over reps calls, by CUDA events."""
-    import torch
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def _solve_seconds(fn):
     """Median seconds of 3 calls of fn (CUDA events), after fn ran once."""
-    return statistics.median(_events_ms(fn, 1) / 1e3 for _ in range(3))
+    from janus_tpu_torch.bench.kernels import events_ms
+    return statistics.median(events_ms(fn, 1) / 1e3 for _ in range(3))
 
 
 def main():
@@ -101,7 +105,9 @@ def main():
     sys.path.insert(0, here)
 
     from janus_tpu_torch import ops as janus_ops
-    from janus_tpu_torch.models.problems import (robertson_rhs, vdp_jac,
+    from janus_tpu_torch.bench import kernels as bench
+    from janus_tpu_torch.models.problems import (DEVICE_PROBLEMS,
+                                                 robertson_rhs, vdp_jac,
                                                  vdp_rhs)
     from janus_tpu_torch.ops import _build, smalllu
     from janus_tpu_torch.ops import radau_fused as k4
@@ -155,15 +161,26 @@ def main():
                     key = str(dtype).replace("torch.", "")
                     err[name][key] = max(err[name].get(key, 0.0), e)
                 if m == M and d in (2, 4):
-                    k1 = _events_ms(lambda: smalllu.lu_factor_t(a_t), 50)
-                    k1p = _events_ms(lambda: smalllu.lu_factor_t_ref(a_t), 50)
-                    k2 = _events_ms(lambda: smalllu.lu_solve_t(lu_ref, b_t), 50)
-                    k2p = _events_ms(
+                    k1 = bench.events_ms(lambda: smalllu.lu_factor_t(a_t), 50)
+                    k1p = bench.events_ms(lambda: smalllu.lu_factor_t_ref(a_t), 50)
+                    k2 = bench.events_ms(lambda: smalllu.lu_solve_t(lu_ref, b_t), 50)
+                    k2p = bench.events_ms(
                         lambda: smalllu.lu_solve_t_ref(lu_ref, b_t), 50)
-                    times[(dtype, d)] = (k1, k1p, k2, k2p)
+                    extra = {}
+                    for name in ("lu_factor_t", "lu_solve_t"):
+                        lib = bench.library_call(name, a_t, b_t, lu_ref)
+                        extra[name] = (
+                            *bench.bound_ms(*bench.lu_work(name, d, m, dtype),
+                                            dtype), bench.events_ms(lib, 50))
+                    times[(dtype, d)] = (k1, k1p, k2, k2p, extra)
                     print(f"[kernels] D={d} M={m} {dtype}: K1 {k1:.4f} ms "
-                          f"(twin {k1p:.4f}), K2 {k2:.4f} ms (twin {k2p:.4f})",
-                          flush=True)
+                          f"(twin {k1p:.4f}, bound {extra['lu_factor_t'][0]:.4f}"
+                          f" by {extra['lu_factor_t'][1]}, torch.linalg."
+                          f"lu_factor {extra['lu_factor_t'][2]:.4f}), K2 "
+                          f"{k2:.4f} ms (twin {k2p:.4f}, bound "
+                          f"{extra['lu_solve_t'][0]:.4f} by "
+                          f"{extra['lu_solve_t'][1]}, torch.linalg.lu_solve "
+                          f"{extra['lu_solve_t'][2]:.4f})", flush=True)
     print(f"[kernels] agree with twins: max|err| K1 {err['K1']}, "
           f"K2 {err['K2']}", flush=True)
 
@@ -294,10 +311,14 @@ def main():
                 err["K3"][key] = max(err["K3"].get(key, 0.0), e)
                 if m == M and d == 4 and dtype == torch.float64:
                     k3_in = (a_t, b_t)
-                    k3 = _events_ms(lambda: smalllu.linsolve_fused(a_t, b_t),
+                    k3 = bench.events_ms(lambda: smalllu.linsolve_fused(a_t, b_t),
                                     50)
-                    k3p = _events_ms(
+                    k3p = bench.events_ms(
                         lambda: smalllu.linsolve_fused_ref(a_t, b_t), 50)
+                    k3_bound = bench.bound_ms(
+                        *bench.lu_work("linsolve_fused", d, m, dtype), dtype)
+                    k3_lib = bench.events_ms(bench.library_call(
+                        "linsolve_fused", a_t, b_t, None), 50)
     # the K3 path: the public op ops.linsolve_fused at D=4, M=65,536
     smalllu.reset_launch_counts()
     janus_ops.linsolve_fused(*k3_in)
@@ -306,8 +327,9 @@ def main():
     if launches["K3"] <= 0:
         _fail("ops.linsolve_fused did not launch K3")
     print(f"[K3] agree with twin: max|err| {err['K3']} | D=4 M={M} float64: "
-          f"{k3:.4f} ms (twin {k3p:.4f}) | launches on the op's path "
-          f"{launches['K3']}", flush=True)
+          f"{k3:.4f} ms (twin {k3p:.4f}, bound {k3_bound[0]:.4f} by "
+          f"{k3_bound[1]}, pivoted torch.linalg.solve {k3_lib:.4f}) | "
+          f"launches on the op's path {launches['K3']}", flush=True)
 
     # ---- 8. K4, one attempt against _step_ref -----------------------------
     def vdp_lanes(dtype, mu=1e3):
@@ -330,8 +352,23 @@ def main():
         share, errs, abs_err = rf.state_agreement(got, ref, 2)
         return share, errs, abs_err, st, tf_row, mus, consts
 
+    ptxas = bench.k4_ptxas(_build.ptxas_log())
+    for f in (vdp_rhs, robertson_rhs):
+        for dtype in (torch.float64, torch.float32):
+            a = k4.kernel_attributes(f, dtype)
+            name = f"{DEVICE_PROBLEMS[f].functor} {str(dtype)[6:]}"
+            _, stack, spill_st, spill_ld = ptxas[name]
+            print(f"[K4 build] {name}: {a['registers']} registers, spill "
+                  f"stores/loads {spill_st}/{spill_ld} B and stack frame "
+                  f"{stack} B (ptxas), {a['local_bytes']} B local per "
+                  f"thread with the functions it calls, "
+                  f"{a['smem_values_per_lane']} values "
+                  f"per lane in shared memory ({a['smem_bytes']} B per "
+                  f"block), {a['warps_per_sm']} resident warps per SM x "
+                  f"{a['sms']} SMs = {a['resident_lanes']} lanes: {M} lanes "
+                  f"take {M / a['resident_lanes']:.3f} waves", flush=True)
     k4_err = {}
-    for dtype, rtol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+    for dtype in (torch.float64, torch.float32):
         for n_before in (0, 5):
             share, errs, abs_err, st, tf_row, mus, consts = one_attempt(
                 dtype, n_before)
@@ -339,12 +376,12 @@ def main():
             print(f"[K4 one attempt] {dtype} after {n_before} attempts: "
                   f"flags/counters equal on {share:.6f} of lanes "
                   f"({round((1 - share) * M)} differ); worst row {worst} "
-                  f"{errs[worst]:.3e} (bound {rtol:g})", flush=True)
-            if share < 0.999:
-                _fail(f"K4 one attempt {dtype}: flags equal on {share}")
-            if errs[worst] > rtol:
-                _fail(f"K4 one attempt {dtype}: row {worst} {errs[worst]:.3e}"
-                      f" > {rtol:g}")
+                  f"{errs[worst]:.3e}, max|err| {abs_err:.3e} (bound 0: to "
+                  f"the bit)", flush=True)
+            if share != 1.0 or abs_err != 0.0:
+                _fail(f"K4 one attempt {dtype}: not equal to _step_ref to "
+                      f"the bit (flags equal on {share}, max|err| "
+                      f"{abs_err:.3e})")
             key = str(dtype).replace("torch.", "")
             k4_err[key] = max(k4_err.get(key, 0.0), abs_err)
             if dtype == torch.float64 and n_before == 0:
@@ -352,14 +389,47 @@ def main():
     st0, tf_row, mus, consts = k4_in
     rows0, treedef0 = rf.arg_rows(mus, st0[0])
     k4_ms = statistics.median(
-        _events_ms(lambda st=st0.clone(): k4.radau5_step(
+        bench.events_ms(lambda st=st0.clone(): k4.radau5_step(
             st, tf_row, vdp_rhs, mus, consts), 1) for _ in range(20))
-    k4p_ms = _events_ms(lambda: rf._step_ref(st0, tf_row, rows0, vdp_rhs,
+    k4p_ms = bench.events_ms(lambda: rf._step_ref(st0, tf_row, rows0, vdp_rhs,
                                              treedef0, consts), 5)
     print(f"[K4 one attempt] M={M} float64 initial state: {k4_ms:.4f} ms per "
           f"launch (twin {k4p_ms:.4f} ms)", flush=True)
 
     # ---- 9. radau_fused headline, f64 ------------------------------------------
+    def same_solution(a, b):
+        """t, y, status and every counter equal to the bit."""
+        return (torch.equal(a.t, b.t) and torch.equal(a.y, b.y)
+                and torch.equal(a.status, b.status)
+                and all(torch.equal(a.stats[k], b.stats[k]) for k in a.stats))
+
+    def k4_device(cell, f, tf, y0, args, opts, sol):
+        """K4's time in three more solves of sol's inputs, CUDA events
+        around each call of the K4 wrapper: ({ms, bound_ms, bound_by},
+        the line to print). Each solve must equal sol to the bit."""
+        runs = [bench.timed_fused_solve(f, 0.0, tf, y0, args, opts)
+                for _ in range(3)]
+        if not all(same_solution(r[0], sol) for r in runs):
+            _fail(f"K4 device {cell}: a timed solve differs from solve_ivp's")
+        ms = statistics.median(r[2] for r in runs)
+        n_launch = runs[0][1]
+        prob = DEVICE_PROBLEMS[f]
+        m, dim = y0.shape
+        steps, trips = sol.stats["nsteps"], sol.stats["nnewton"]
+        nbytes, ops = bench.k4_work(prob.functor, dim, y0.dtype, m, n_launch,
+                                    int(steps.sum()), int(trips.sum()),
+                                    len(prob.params))
+        bms, by = bench.bound_ms(nbytes, ops, y0.dtype)
+        rounds = int(steps.max())
+        line = (f"[K4 device {cell}] M={m} {y0.dtype}: {ms:.5f} ms per solve"
+                f" ({n_launch} launches; CUDA events around the K4 wrapper "
+                f"calls, median of 3), {ms / rounds * 1e3:.3f} us per attempt"
+                f" round ({rounds} rounds) | bound {bms:.5f} ms by {by} "
+                f"({ops:.6g} operations), {bms / ms:.3f} of it | warp "
+                f"efficiency: attempts {bench.warp_efficiency(steps):.4f}, "
+                f"Newton trips {bench.warp_efficiency(trips):.4f}")
+        return {"ms": ms, "bound_ms": bms, "bound_by": by}, line
+
     def fused(dtype, rtol=1e-6, atol=1e-9, kernel=True):
         """The headline lanes through solve_ivp('radau_fused') (K4), or
         with kernel=False through the twin loop on the card."""
@@ -388,11 +458,13 @@ def main():
     sol_p = fused(torch.float64, kernel=False)
     torch.cuda.synchronize()
     sec_p = time.perf_counter() - t_p
-    if not torch.allclose(sol_k.y, sol_p.y, rtol=1e-5,
-                          atol=1e-5 * float(sol_p.y.abs().max())):
-        _fail("radau_fused f64: kernel vs twin loop differ beyond rtol 1e-5")
     e_twin = float(((sol_k.y - sol_p.y).abs()
                     / sol_p.y.abs().clamp(min=1e-300)).max())
+    if not same_solution(sol_k, sol_p):
+        _fail(f"radau_fused f64: kernel vs twin loop not equal to the bit "
+              f"(y max rel {e_twin:.3e})")
+    k4_rec, k4_line = k4_device("headline", vdp_rhs, 1.0, *vdp_lanes(
+        torch.float64), Options(rtol=1e-6, atol=1e-9), sol_k)
     y0, mus = vdp_lanes(torch.float64)
 
     def eager_radau5():
@@ -411,6 +483,21 @@ def main():
           f" | s/solve K4 {sec_k:.6f}, twin loop {sec_p:.4f} (one solve, "
           f"host clock), eager radau5 + K1/K2 {sec_e:.4f} | vs twin max rel "
           f"{e_twin:.3e} | y(1) lane0 {sol_k.y[0].tolist()}", flush=True)
+    print(k4_line, flush=True)
+
+    # 4 x 65,536 copies of the headline lanes: more than the card holds
+    y4, mus4 = (x.repeat(4, *[1] * (x.ndim - 1))
+                for x in vdp_lanes(torch.float64))
+    sol_4 = solve_ivp(vdp_rhs, (0.0, 1.0), y4, method="radau_fused",
+                      args=mus4, rtol=1e-6, atol=1e-9)
+    if fractions(sol_4)[0] != 1.0:
+        _fail(f"radau_fused 4x{M}: success_fraction {fractions(sol_4)[0]}")
+    if not torch.equal(sol_4.y.reshape(4, M, 2),
+                       sol_k.y.expand(4, M, 2)):
+        _fail(f"radau_fused 4x{M}: a copy's y differs from the headline's")
+    print(k4_device("4x65536", vdp_rhs, 1.0, y4, mus4,
+                    Options(rtol=1e-6, atol=1e-9), sol_4)[1]
+          + " | every copy's y equal to the headline's", flush=True)
 
     # ---- 10. radau_fused, heterogeneous mu, f64, against scipy -------------
     mus_h = torch.logspace(1, 3, M, dtype=torch.float64, device=dev)
@@ -429,6 +516,8 @@ def main():
           f"{rf.solve_radau_fused.host_syncs} | {sec_fh:.6f} s (one solve, "
           f"host clock) | 8 lanes vs scipy Radau: worst error / bound "
           f"{worst:.3e}", flush=True)
+    print(k4_device("hetero mu", vdp_rhs, 1.0, y0, mus_h,
+                    Options(rtol=1e-6, atol=1e-9), sol_fh)[1], flush=True)
 
     # ---- 11. radau_fused, Robertson (D=3) -----------------------------------
     m_r = 4096
@@ -442,13 +531,15 @@ def main():
     succ_r, acc_r = fractions(sol_r)
     if succ_r != 1.0:
         _fail(f"radau_fused Robertson: success_fraction {succ_r}")
-    if not torch.allclose(sol_r.y, sol_rp.y, rtol=1e-5,
-                          atol=1e-5 * float(sol_rp.y.abs().max())):
-        _fail("radau_fused Robertson: kernel vs twin loop differ")
+    if not same_solution(sol_r, sol_rp):
+        _fail("radau_fused Robertson: kernel vs twin loop not equal to the "
+              "bit")
     print(f"[radau_fused Robertson f64] M={m_r} tf=logspace(-2,2): "
           f"success_fraction {succ_r} accept_fraction {acc_r:.4f} nsteps max "
-          f"{int(sol_r.stats['nsteps'].max())} | agrees with the twin loop "
-          f"within rtol 1e-5", flush=True)
+          f"{int(sol_r.stats['nsteps'].max())} | equal to the twin loop to "
+          f"the bit", flush=True)
+    print(k4_device("Robertson", robertson_rhs, tf_r, y0_r, None,
+                    Options(rtol=1e-6, atol=1e-10), sol_r)[1], flush=True)
 
     # ---- 12. radau_fused, f32 ------------------------------------------------
     sol_f = fused(torch.float32, rtol=1e-4, atol=1e-7)
@@ -459,33 +550,41 @@ def main():
         _fail(f"radau_fused f32 success_fraction {succ_f} < 0.99")
     print(f"[radau_fused f32] rtol 1e-4: success_fraction {succ_f} "
           f"accept_fraction {acc_f:.4f}", flush=True)
+    print(k4_device("f32", vdp_rhs, 1.0, *vdp_lanes(torch.float32),
+                    Options(rtol=1e-4, atol=1e-7), sol_f)[1], flush=True)
 
-    k1, k1p, k2, k2p = times[(torch.float64, 4)]
+    k1, k1p, k2, k2p, extra = times[(torch.float64, 4)]
+    (b1, by1, lib1), (b2, by2, lib2) = (extra["lu_factor_t"],
+                                        extra["lu_solve_t"])
     print(json.dumps({"kernels": [
         {"name": "lu_factor_t", "route": "cuda",
          "source": "janus_tpu_torch/csrc/smalllu.cu",
          "replaces": "janus_tpu/ops/smalllu_pallas.py:84",
          "launches": launches["K1"], "max_abs_err": err["K1"]["float64"],
-         "ms": k1, "plain_ms": k1p,
-         "shape": f"D=4 M={M} float64"},
+         "ms": k1, "plain_ms": k1p, "bound_ms": b1, "bound_by": by1,
+         "library_ms": lib1, "shape": f"D=4 M={M} float64"},
         {"name": "lu_solve_t", "route": "cuda",
          "source": "janus_tpu_torch/csrc/smalllu.cu",
          "replaces": "janus_tpu/ops/smalllu_pallas.py:115",
          "launches": launches["K2"], "max_abs_err": err["K2"]["float64"],
-         "ms": k2, "plain_ms": k2p,
-         "shape": f"D=4 M={M} float64"},
+         "ms": k2, "plain_ms": k2p, "bound_ms": b2, "bound_by": by2,
+         "library_ms": lib2, "shape": f"D=4 M={M} float64"},
         {"name": "linsolve_fused", "route": "cuda",
          "source": "janus_tpu_torch/csrc/smalllu.cu",
          "replaces": "janus_tpu/ops/smalllu_pallas.py:55",
          "launches": launches["K3"], "max_abs_err": err["K3"]["float64"],
-         "ms": k3, "plain_ms": k3p,
-         "shape": f"D=4 M={M} float64"},
+         "ms": k3, "plain_ms": k3p, "bound_ms": k3_bound[0],
+         "bound_by": k3_bound[1], "library_ms": k3_lib,
+         "shape": f"D=4 M={M} float64 (library: pivoted solve)"},
         {"name": "radau5_step", "route": "cuda",
          "source": "janus_tpu_torch/csrc/radau_fused.cu",
          "replaces": "janus_tpu/solve/radau_fused.py:170",
          "launches": launches["K4"], "max_abs_err": k4_err["float64"],
-         "ms": k4_ms, "plain_ms": k4p_ms,
-         "shape": f"one attempt, VdP D=2 M={M} float64"},
+         "ms": k4_rec["ms"], "plain_ms": sec_p * 1e3,
+         "bound_ms": k4_rec["bound_ms"], "bound_by": k4_rec["bound_by"],
+         "library_ms": None,
+         "shape": f"every K4 launch of one radau_fused solve, VdP D=2 "
+                  f"M={M} float64 (plain: the twin loop's solve)"},
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from janus_tpu_torch.solve.common import tree_map
+from janus_tpu_torch.solve.common import default_device, tree_map
 from janus_tpu_torch.solve.options import Options
 
 # field renames, port name -> reference name
@@ -32,13 +32,15 @@ def options_from_jax(opts) -> Options:
 
 def tree_to_torch(tree, device=None, dtype=None):
     """Arrays (numpy, or anything with ``__array__``) in a tree of dicts,
-    lists and tuples → torch tensors on ``device``; floating arrays are cast
-    to ``dtype`` when given. Python scalars and None stay as they are."""
+    lists and tuples → torch tensors on ``device``, by default the CUDA card
+    (``device="cpu"`` asks for the CPU; with no card and no device this
+    raises ValueError); floating arrays are cast to ``dtype`` when given.
+    Python scalars and None stay as they are."""
     def conv(x):
         if x is None or isinstance(x, (bool, int, float)):
             return x
         t = torch.from_numpy(np.array(x))
         if dtype is not None and t.is_floating_point():
             t = t.to(dtype)
-        return t.to(device) if device is not None else t
+        return t.to(default_device(device))
     return tree_map(conv, tree)

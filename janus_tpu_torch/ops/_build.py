@@ -1,12 +1,15 @@
 """Build the CUDA kernels of ``csrc/`` at first use and load them with ctypes.
 
 ``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
--Xcompiler -fPIC -c`` compiles each ``csrc/*.cu`` (one nvcc per source, all started
-together) and one ``nvcc -shared`` links them into a shared library with a
-plain C interface under ``janus_tpu_torch/_build/`` (git-ignored), named by
-a hash of the sources, so an edited source rebuilds and an unchanged one
-loads from the cache. No PyTorch headers are compiled. A missing ``nvcc``
-or a failed build raises: there is no fallback.
+-Xcompiler -fPIC -Xptxas -v -c`` compiles each ``csrc/*.cu`` (one nvcc per
+source, all started together; ``SOURCE_FLAGS`` names the two sources built
+otherwise) and one ``nvcc -shared`` links them, device code included, into a
+shared library with a plain C interface under ``janus_tpu_torch/_build/``
+(git-ignored), named by a hash of the sources and flags, so an edited
+source rebuilds and an unchanged one loads from the cache. ptxas's report
+(registers, spills, per kernel) is kept beside the library
+(``ptxas_log``). No PyTorch headers are compiled. A missing ``nvcc`` or a failed build raises: there is no
+fallback.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 # -fmad=false: each kernel does its twin's IEEE operations one by one. With
 # a*b + c contracted to FMAs, the cancellations in K4's step (the error
 # estimate f0 + ze, the warm-start polynomial) amplified last-bit
@@ -30,7 +34,12 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # err_old in f32 (VdP, H100), and an ill-conditioned f32 lane put K3 5.5e-5
 # of the largest entry away from its twin. The LU kernels are memory bound,
 # K4 latency bound: contraction buys them little.
-NVCC_FLAGS = ["-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
+FMAD_OFF = ["-fmad=false"]
+# K4 calls pow in double from pow_fmad.cu, built with contraction as
+# PyTorch builds its kernels (the twin's pow; see that file), so both are
+# relocatable device code, joined when the library is linked.
+SOURCE_FLAGS = {"radau_fused.cu": ["-fmad=false", "-rdc=true"],
+                "pow_fmad.cu": ["-fmad=true", "-rdc=true"]}
 
 _lib = None
 
@@ -45,6 +54,7 @@ def _source_hash() -> str:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     return h.hexdigest()[:16]
 
 
@@ -62,20 +72,31 @@ def find_nvcc() -> str:
                        "janus_tpu_torch cannot be built")
 
 
+def _library_path() -> Path:
+    return BUILD_DIR / f"libjanus_kernels_{_source_hash()}.so"
+
+
+def ptxas_log() -> str:
+    """ptxas -v's report of the build (built if need be)."""
+    return build().with_suffix(".ptxas.txt").read_text()
+
+
 def build(verbose: bool = False) -> Path:
     """Compile csrc/*.cu into the cached shared library; returns its path.
-    One nvcc per source, all started together, then one link."""
-    out = BUILD_DIR / f"libjanus_kernels_{_source_hash()}.so"
+    One nvcc per source, all started together, then one link. verbose
+    prints ptxas's report of a fresh build."""
+    out = _library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
-    flags = [*ARCH_FLAGS, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else [])]
+    flags = [*ARCH_FLAGS, *NVCC_FLAGS, "-Xptxas", "-v"]
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs, procs = [], []
         for src in _sources():
             obj = os.path.join(tmp, src.stem + ".o")
-            cmd = [nvcc, *flags, "-c", "-o", obj, str(src)]
+            cmd = [nvcc, *flags, *SOURCE_FLAGS.get(src.name, FMAD_OFF), "-c",
+                   "-o", obj, str(src)]
             procs.append((cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
@@ -90,13 +111,16 @@ def build(verbose: bool = False) -> Path:
         if failed:
             raise RuntimeError("\n".join(failed))
         lib = os.path.join(tmp, out.name)
-        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", lib, *objs]
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-Xcompiler", "-fPIC", "-o", lib,
+               *objs]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
                                f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+        log = "".join(logs) + res.stdout + res.stderr
         if verbose:
-            print("".join(logs) + res.stdout + res.stderr)
+            print(log)
+        out.with_suffix(".ptxas.txt").write_text(log)
         os.replace(lib, out)
     return out
 
@@ -116,5 +140,7 @@ def load_library(verbose: bool = False):
         lib.janus_radau5_step.argtypes = [vp, vp, vp, i64, ctypes.c_char_p,
                                           i32, i32, i32, vp, i32, vp]
         lib.janus_radau5_step.restype = i32
+        lib.janus_radau5_attributes.argtypes = [ctypes.c_char_p, i32, vp]
+        lib.janus_radau5_attributes.restype = i32
         _lib = lib
     return _lib

@@ -14,7 +14,8 @@ and runs up to ``max_attempts`` step attempts for every active lane:
 - for a CPU tensor it runs the twin ``solve.radau_fused._step_ref`` (any f)
   and returns a new state.
 
-``radau5_step.launches`` counts kernel launches.
+``radau5_step.launches`` counts kernel launches; ``kernel_attributes``
+reads K4's registers, spills and residency on the card.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from janus_tpu_torch.solve import common as cm
 from janus_tpu_torch.solve import radau_fused as rf
 
 _D = ctypes.c_double
+THREADS = 128           # threads per block of K4 (csrc/radau_fused.cu kThreads)
 
 
 class _Consts(ctypes.Structure):
@@ -123,6 +125,24 @@ def radau5_step(state, tf_row, f, args, consts: rf.StepConsts,
     _raise_on(rc, "radau5_step")
     radau5_step.launches += 1
     return state
+
+
+def kernel_attributes(f, dtype) -> dict:
+    """K4's instantiation for f (a registered problem) and dtype on the
+    current card: registers and local (spill) bytes per thread, dynamic
+    shared bytes per block, per-lane values kept in shared memory, resident
+    blocks and warps per SM, SMs, and the lanes resident at once."""
+    from janus_tpu_torch.ops._build import load_library
+    out = (ctypes.c_int * 6)()
+    _raise_on(load_library().janus_radau5_attributes(
+        DEVICE_PROBLEMS[f].functor.encode(), _DTYPE_CODE[dtype], out),
+        "janus_radau5_attributes")
+    regs, local, smem, slots, blocks, sms = out
+    warps = blocks * THREADS // 32
+    return {"registers": regs, "local_bytes": local, "smem_bytes": smem,
+            "smem_values_per_lane": slots, "blocks_per_sm": blocks,
+            "warps_per_sm": warps, "sms": sms,
+            "resident_lanes": warps * 32 * sms}
 
 
 radau5_step.launches = 0

@@ -53,7 +53,7 @@ def solve_ivp(f: Callable, tspan, y0, method: str = "dopri5", args: Any = None,
               events=None, jac: Optional[Callable] = None, mass=None,
               tangents=None, args_tangents=None,
               quad: Optional[Callable] = None, dense: int = 0,
-              step_args: Any = None,
+              step_args: Any = None, device=None,
               **opt_kw) -> Solution:
     """Batched initial-value-problem solve, as ``janus_tpu.solve.solve_ivp``.
 
@@ -63,6 +63,9 @@ def solve_ivp(f: Callable, tspan, y0, method: str = "dopri5", args: Any = None,
     on the card f must be in models.problems.DEVICE_PROBLEMS). Every other
     method raises NotImplementedError until its slice is ported (ROADMAP.md).
     options: Options(...); or pass rtol=…, atol=… etc. as keywords.
+    device: where a y0 that is not a torch tensor goes (default: the CUDA
+    card; with no card, pass a CPU tensor or device='cpu'). A torch y0
+    solves on its own device.
     """
     if options is None:
         options = Options(**opt_kw)
@@ -106,7 +109,7 @@ def solve_ivp(f: Callable, tspan, y0, method: str = "dopri5", args: Any = None,
                          "models.controls time-indexed schedules or "
                          "solve.fixed.odeint_fixed(step_args=) otherwise")
     if canonical == "radau_fused":
-        return solve_radau_fused(f, t0, tf, y0, args, options)
+        return solve_radau_fused(f, t0, tf, y0, args, options, device)
     stages = _RADAU_STAGES[method]
     if stages is not None:
         options = options.replace(min_stages=stages, max_stages=stages)
@@ -117,7 +120,8 @@ def solve_ivp(f: Callable, tspan, y0, method: str = "dopri5", args: Any = None,
     return solve_radau(f, t0, tf, y0, args, options, t_eval,
                        jac=jac, mass=mass, events=events,
                        tangents=tangents, args_tangents=args_tangents,
-                       quad=quad, dense=dense, step_args=step_args)
+                       quad=quad, dense=dense, step_args=step_args,
+                       device=device)
 
 
 __all__ = [

@@ -2,7 +2,9 @@
 
 The whole batch advances in one Python loop and every per-trajectory
 decision is a ``torch.where`` select. The device is the one ``y0`` lies on;
-nothing here moves a tensor to another device.
+a ``y0`` that is not a tensor goes to the CUDA card unless the caller asks
+for another device (``broadcast_batch``). Nothing here moves a tensor to
+another device.
 """
 
 from __future__ import annotations
@@ -136,9 +138,39 @@ def like(x, ref):
     return torch.as_tensor(x, dtype=ref.dtype, device=ref.device)
 
 
-def broadcast_batch(t0, tf, y0):
-    """Normalize (t0, tf, y0) to batched [M]/[M]/[M,D] tensors on y0's device."""
-    y0 = torch.as_tensor(y0)
+def default_device(device=None) -> torch.device:
+    """The device an array that is not a torch tensor goes to: ``device``
+    when given, else the CUDA card. With no card and no device asked for
+    this raises; it never picks the CPU on its own."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise ValueError(
+            "no CUDA device: pass y0 as a CPU tensor, or device='cpu', to "
+            "solve on the CPU")
+    return torch.device("cuda")
+
+
+def on_device(x, device=None) -> torch.Tensor:
+    """x as a tensor: a torch tensor stays on its device (a different
+    ``device`` asked for is refused, never copied to); anything else goes
+    to ``default_device(device)``. A device with no index ("cuda") is any
+    device of its type."""
+    if isinstance(x, torch.Tensor):
+        want = torch.device(device) if device is not None else None
+        if want is not None and (
+                want.type != x.device.type
+                or want.index not in (None, x.device.index)):
+            raise ValueError(f"tensor on {x.device}, device={device!r} "
+                             "asked for (it is not copied)")
+        return x
+    return torch.as_tensor(x, device=default_device(device))
+
+
+def broadcast_batch(t0, tf, y0, device=None):
+    """Normalize (t0, tf, y0) to batched [M]/[M]/[M,D] tensors on y0's
+    device (``on_device``: a y0 that is not a tensor goes to the card)."""
+    y0 = on_device(y0, device)
     if y0.ndim < 2:
         y0 = y0.reshape(1, -1)
     m = y0.shape[0]

@@ -335,11 +335,12 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
                 events=None, tangents=None,
                 args_tangents=None, quad: Optional[Callable] = None,
                 dense: int = 0, step_args=None, _mesh_size: int = 0,
-                _h0=None) -> cm.Solution:
+                _h0=None, device=None) -> cm.Solution:
     """Batched adaptive Radau IIA solve (fixed stage count = options.min_stages).
 
-    f(t [M], y [M, D], args) -> [M, D]; y0 [M, D] on the device the solve runs
-    on. tangents: optional [K, M, D] seed directions for forward
+    f(t [M], y [M, D], args) -> [M, D]; y0 [M, D]. A torch y0 solves on its
+    own device; any other y0 goes to ``device``, by default the CUDA card
+    (with no card, pass a CPU tensor or device='cpu'). tangents: optional [K, M, D] seed directions for forward
     sensitivities by internal differentiation (one primal solve + K linear
     tangent sweeps per accepted step reusing the step's LU factors); result
     in ``Solution.sens`` [K, M, D]. args_tangents: optional pytree matching
@@ -375,7 +376,7 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
 
     s = opts.min_stages
     tab = radau_tableau(s)
-    t0, tf, y0 = cm.broadcast_batch(t0, tf, y0)
+    t0, tf, y0 = cm.broadcast_batch(t0, tf, y0, device)
     m, dim = y0.shape
     dtype, dev = y0.dtype, y0.device
     npair = (s - 1) // 2

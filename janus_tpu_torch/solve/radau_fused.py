@@ -106,6 +106,12 @@ def _rdiv(c: float, x):
     return x.new_tensor(c) / x
 
 
+def _div(x, c: float):
+    """x / c as a true division (on the card torch's ``x / c`` multiplies x
+    by 1/c, which rounds twice unless c is a power of two)."""
+    return x / torch.full_like(x, c)
+
+
 @dataclasses.dataclass(frozen=True)
 class StepConsts:
     """The tableau (radau_tableau(3)) and controller constants of one solve,
@@ -286,13 +292,15 @@ def _step_ref(state, tf_row, arg_rows, f: Callable, treedef, consts):
             for i in range(dim):
                 r = dw[s][i] / scale[i]
                 ssum = ssum + r * r
-        dwn = torch.sqrt(ssum / (3 * dim))
+        dwn = torch.sqrt(_div(ssum, 3 * dim))
         have = it > 0
         rt = torch.where(
             (dwn_old > 0) & have,
             dwn / torch.where(dwn_old == 0, 1.0, dwn_old), 0.0)
         srt = torch.clamp(rt, 1e-16, 1.0 - 1e-16)
-        left = float(k.newton_maxiter - it)
+        # a tensor exponent: for a number exponent of 2 or 3 torch
+        # multiplies (x*x, x*x*x) where the kernel calls pow
+        left = torch.full_like(srt, float(k.newton_maxiter - it))
         div = ((rt >= 1.0) | (torch.pow(srt, left) / (1 - srt) * dwn
                               > k.newton_tol)) & have
         failn = running & (~finite | div)
@@ -325,7 +333,7 @@ def _step_ref(state, tf_row, arg_rows, f: Callable, treedef, consts):
         for i in range(dim):
             r = err[i] / sc[i]
             esum = esum + r * r
-        en = torch.sqrt(esum / dim)
+        en = torch.sqrt(_div(esum, dim))
         return torch.where(torch.isfinite(en), en, 1e10)
 
     err = _solve_lu_rows(lu_r, [f0[i] + ze[i] for i in range(dim)], dim)
@@ -475,10 +483,10 @@ def solution_of(state, dim: int) -> cm.Solution:
         stats={k: state[rows[k]].to(torch.int32) for k in STATS})
 
 
-def _solve(f, t0, tf, y0, args, options, step):
+def _solve(f, t0, tf, y0, args, options, step, device=None):
     """The host loop: step(state, tf_row, consts) while any lane is active."""
     opts = options if options is not None else Options()
-    t0, tf, y0 = cm.broadcast_batch(t0, tf, y0)
+    t0, tf, y0 = cm.broadcast_batch(t0, tf, y0, device)
     arg_rows(args, y0[:, 0])                # the reference's args check
     st, tf_row = initial_state(f, t0, tf, y0, args, opts)
     consts = step_consts(opts, st.dtype)
@@ -491,12 +499,14 @@ def _solve(f, t0, tf, y0, args, options, step):
 
 
 def solve_radau_fused(f: Callable, t0, tf, y0, args=None,
-                      options: Optional[Options] = None) -> cm.Solution:
+                      options: Optional[Options] = None,
+                      device=None) -> cm.Solution:
     """Batched Radau5 (s=3) with the fused one-kernel step attempt (K4).
 
-    f(t [M], y [M, D], args) -> [M, D]; y0 [M, D] on the device the solve
-    runs on. On a CUDA tensor f must be in ``models.problems.
-    DEVICE_PROBLEMS``. The host syncs of the last solve are in
+    f(t [M], y [M, D], args) -> [M, D]; y0 [M, D]. A torch y0 solves on its
+    own device; any other y0 goes to ``device``, by default the CUDA card
+    (with no card, pass a CPU tensor or device='cpu'). On the card f must
+    be in ``models.problems.DEVICE_PROBLEMS``. The host syncs of the last solve are in
     ``solve_radau_fused.host_syncs``.
     """
     from janus_tpu_torch.ops.radau_fused import radau5_step
@@ -506,7 +516,7 @@ def solve_radau_fused(f: Callable, t0, tf, y0, args=None,
                            max_attempts=MAX_ATTEMPTS)
 
     sol, solve_radau_fused.host_syncs = _solve(f, t0, tf, y0, args, options,
-                                               step)
+                                               step, device)
     return sol
 
 
@@ -514,7 +524,8 @@ solve_radau_fused.host_syncs = 0
 
 
 def solve_radau_fused_ref(f: Callable, t0, tf, y0, args=None,
-                          options: Optional[Options] = None) -> cm.Solution:
+                          options: Optional[Options] = None,
+                          device=None) -> cm.Solution:
     """The same solve with every attempt in ``_step_ref``, on any device:
     the plain version the kernel path is held against on the card."""
 
@@ -522,5 +533,5 @@ def solve_radau_fused_ref(f: Callable, t0, tf, y0, args=None,
         rows, treedef = arg_rows(args, st)
         return _step_ref(st, tf_row, rows, f, treedef, consts)
 
-    sol, _ = _solve(f, t0, tf, y0, args, options, step)
+    sol, _ = _solve(f, t0, tf, y0, args, options, step, device)
     return sol

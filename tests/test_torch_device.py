@@ -1,0 +1,94 @@
+"""Where the port's entry points put their arrays, on the CPU.
+
+A torch tensor keeps its device. Anything else (a numpy array, a list) goes
+to the CUDA card unless the caller asks for another device with
+``device="cpu"``; with no card and no such request the entry points raise
+ValueError instead of running on the CPU. The card is hidden here by
+monkeypatching ``torch.cuda.is_available``, so the tests behave the same on
+a machine that has one. A solve of a numpy y0 with ``device="cpu"`` equals
+the solve of the same y0 as a CPU tensor exactly.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from janus_tpu_torch.interop import tree_to_torch
+from janus_tpu_torch.models.problems import vdp_rhs
+from janus_tpu_torch.solve import common as cm
+from janus_tpu_torch.solve import (Options, solve_ivp, solve_radau,
+                                   solve_radau_fused)
+
+torch.set_num_threads(1)
+
+Y0 = np.array([[2.0, 0.0], [1.5, 0.1], [2.0, -0.2]])
+KW = dict(args=50.0, rtol=1e-6, atol=1e-9)
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _equal(a, b):
+    assert a.y.device.type == b.y.device.type == "cpu"
+    torch.testing.assert_close(a.y, b.y, rtol=0, atol=0)
+    torch.testing.assert_close(a.status, b.status, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("method", ["radau5", "radau9", "radau_fused"])
+def test_numpy_y0_with_device_cpu_solves_on_the_cpu(method, no_card):
+    got = solve_ivp(vdp_rhs, (0.0, 1.0), Y0, method=method, device="cpu",
+                    **KW)
+    ref = solve_ivp(vdp_rhs, (0.0, 1.0), torch.from_numpy(Y0), method=method,
+                    **KW)
+    assert bool((ref.status == 1).all())
+    _equal(got, ref)
+
+
+def test_solvers_take_device(no_card):
+    opts = Options(rtol=1e-6, atol=1e-9)
+    for solve in (solve_radau, solve_radau_fused):
+        got = solve(vdp_rhs, 0.0, 1.0, Y0, 50.0, opts, device="cpu")
+        ref = solve(vdp_rhs, 0.0, 1.0, torch.from_numpy(Y0), 50.0, opts)
+        _equal(got, ref)
+
+
+@pytest.mark.parametrize("entry", ["radau5", "radau_fused", "solve_radau",
+                                   "solve_radau_fused"])
+def test_numpy_y0_without_card_raises(entry, no_card):
+    with pytest.raises(ValueError, match="pass y0 as a CPU tensor"):
+        if entry.startswith("solve_"):
+            solve = {"solve_radau": solve_radau,
+                     "solve_radau_fused": solve_radau_fused}[entry]
+            solve(vdp_rhs, 0.0, 1.0, Y0, 50.0)
+        else:
+            solve_ivp(vdp_rhs, (0.0, 1.0), Y0, method=entry, **KW)
+
+
+def test_default_device_is_the_card_when_there_is_one(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert cm.default_device() == torch.device("cuda")
+    assert cm.default_device("cpu") == torch.device("cpu")
+
+
+def test_tensor_keeps_its_device_and_refuses_another(no_card):
+    y0 = torch.from_numpy(Y0)
+    assert cm.on_device(y0) is y0 and cm.on_device(y0, "cpu") is y0
+    with pytest.raises(ValueError, match="not copied"):
+        cm.on_device(y0, "meta")
+    with pytest.raises(ValueError, match="not copied"):
+        solve_ivp(vdp_rhs, (0.0, 1.0), y0, method="radau5", device="meta",
+                  **KW)
+
+
+def test_tree_to_torch_device(no_card):
+    tree = {"a": np.ones(3), "b": [np.zeros((2, 2)), 1.5, None], "c": (7,)}
+    got = tree_to_torch(tree, device="cpu", dtype=torch.float32)
+    assert got["a"].device.type == "cpu" and got["a"].dtype == torch.float32
+    assert got["b"][0].device.type == "cpu" and got["b"][1:] == [1.5, None]
+    assert got["c"] == (7,)
+    assert tree_to_torch(None) is None and tree_to_torch({"x": 2.0}) == {
+        "x": 2.0}
+    with pytest.raises(ValueError, match="no CUDA device"):
+        tree_to_torch(tree)

@@ -102,10 +102,11 @@ def test_solve_radau_matches_reference(case):
         args_tangents=None if atan is None else jnp.asarray(atan))
     def port(ulp):
         return solve_radau(
-            vdp_rhs, 0.0, 1.0, tree_to_torch(y0 * (1 + ulp)),
-            args=tree_to_torch(mus * (1 + ulp)), options=opts,
+            vdp_rhs, 0.0, 1.0, tree_to_torch(y0 * (1 + ulp), device="cpu"),
+            args=tree_to_torch(mus * (1 + ulp), device="cpu"), options=opts,
             jac=vdp_jac if c["jac"] else None,
-            tangents=tree_to_torch(tan), args_tangents=tree_to_torch(atan))
+            tangents=tree_to_torch(tan, device="cpu"),
+            args_tangents=tree_to_torch(atan, device="cpu"))
 
     got = port(0.0)
     syncs = solve_radau.host_syncs
@@ -120,8 +121,9 @@ def test_solve_ivp_radau9_matches_reference():
     ref = ref_solve_ivp(ref_vdp_rhs, (0.0, 1.0), jnp.asarray(y0),
                         method="radau9", args={"mu": jnp.asarray(mus)},
                         jac=ref_vdp_jac, pallas_lu=True, **kw)
-    got = solve_ivp(vdp_rhs, (0.0, 1.0), tree_to_torch(y0), method="radau9",
-                    args=tree_to_torch({"mu": mus}), jac=vdp_jac,
+    got = solve_ivp(vdp_rhs, (0.0, 1.0), tree_to_torch(y0, device="cpu"),
+                    method="radau9",
+                    args=tree_to_torch({"mu": mus}, device="cpu"), jac=vdp_jac,
                     kernel_lu=True, **kw)
     _compare(got, ref)
 

@@ -13,10 +13,13 @@ atol 1e-12 (float64).
 
 Also: the port's fused solve against its own eager radau5 within 1e-6
 relative plus 1e-9 absolute (as the reference's test holds its pair), the
-dispatcher's raises, the args check, the device registry, and the K4
-wrapper's refusal of anything but a CPU or a CUDA tensor.
+dispatcher's raises, the args check, the device registry, the K4
+wrapper's refusal of anything but a CPU or a CUDA tensor, and the ctypes
+Structure of K4's constants against the C struct (names, types, array
+lengths, size).
 """
 
+import ctypes
 import re
 from pathlib import Path
 
@@ -213,3 +216,34 @@ def test_consts_struct_matches_cuda_source():
     names = [re.sub(r"\[\d+\]", "", n).strip()
              for d in decls for n in d.split(",")]
     assert names == [f[0] for f in k4._Consts._fields_]
+
+
+_C_TYPES = {"double": ctypes.c_double, "int": ctypes.c_int}
+
+
+def test_consts_struct_types_and_size_match_cuda_source():
+    """Every field of JanusRadauConsts, with its C type and array length, is
+    the ctypes field of the same position, and the two structs have one
+    size: a field added on one side only fails here."""
+    src = (CSRC / "radau_fused.cu").read_text()
+    body = re.search(r"struct JanusRadauConsts \{(.*?)\};", src, re.S).group(1)
+    fields = []
+    for decl in re.sub(r"//[^\n]*", "", body).split(";"):
+        if not decl.strip():
+            continue
+        ctype, names = decl.split(None, 1)
+        for name in names.split(","):
+            m = re.fullmatch(r"\s*(\w+)\s*(?:\[(\d+)\])?\s*", name)
+            base = _C_TYPES[ctype]
+            fields.append((m.group(1),
+                           base * int(m.group(2)) if m.group(2) else base))
+    got = k4._Consts._fields_
+    assert [n for n, _ in got] == [n for n, _ in fields]
+    for (name, want), (_, have) in zip(fields, got):
+        assert (ctypes.sizeof(have), getattr(have, "_type_", have)) == (
+            ctypes.sizeof(want), getattr(want, "_type_", want)), name
+
+    class Mirror(ctypes.Structure):
+        _fields_ = fields
+
+    assert ctypes.sizeof(k4._Consts) == ctypes.sizeof(Mirror)

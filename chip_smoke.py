@@ -60,7 +60,20 @@ Phases, one line each (everything is made from fixed seeds):
     success 1.0, y and counters equal to the twin loop's to the bit, K4's
     device time;
 12. radau_fused f32 at rtol 1e-4, atol 1e-7: finite, success >= 0.99, K4's
-    device time.
+    device time;
+13. the matrix-free Radau path (janus_tpu_torch.bench.mol, where each phase
+    is described): Thomas against PCR on the card (D=128, M = 1,024 and
+    65,536, real and complex; agreement to 1e-10 relative, both times);
+    bench.py's method-of-lines configuration at full width -- the D=128
+    Fisher-KPP line, stage_solver='tridiag', rtol 1e-4 -- at M = 1,024 in
+    f64 and f32 and at M = 65,536 in f64: every lane SUCCESS, three lanes
+    against scipy's Radau, ms per solve, steps, host syncs, launches and the
+    device's busy share, and that no hand-written kernel was launched (this
+    path runs none, as it runs no Pallas kernel in the reference); the same
+    lines through GMRES(8) and GMRES(25); a 32x32 heat grid with
+    precond='lines'; the interleaved 2-species line with precond='block';
+    K=2 IND sensitivities through the GMRES stage solvers against a central
+    difference.
 
 Then one JSON line with the kernels' records, nvidia-smi's line, and last
 {"ok": true, "device": {...}}. Any failed check raises; no phase's failure
@@ -106,6 +119,7 @@ def main():
 
     from janus_tpu_torch import ops as janus_ops
     from janus_tpu_torch.bench import kernels as bench
+    from janus_tpu_torch.bench import mol
     from janus_tpu_torch.models.problems import (DEVICE_PROBLEMS,
                                                  robertson_rhs, vdp_jac,
                                                  vdp_rhs)
@@ -552,6 +566,9 @@ def main():
           f"accept_fraction {acc_f:.4f}", flush=True)
     print(k4_device("f32", vdp_rhs, 1.0, *vdp_lanes(torch.float32),
                     Options(rtol=1e-4, atol=1e-7), sol_f)[1], flush=True)
+
+    # ---- 13. the matrix-free Radau path ---------------------------------------
+    mol.run(dev)           # a failed check raises mol.MolCheckFailed
 
     k1, k1p, k2, k2p, extra = times[(torch.float64, 4)]
     (b1, by1, lib1), (b2, by2, lib2) = (extra["lu_factor_t"],

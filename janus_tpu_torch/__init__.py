@@ -12,7 +12,12 @@ pivot-free stage factor/solve running through the hand-written CUDA kernels
 of ``ops/smalllu.py`` when ``Options(kernel_lu=True)`` and the tensors lie
 on a CUDA device; the fused Radau5 solve ``solve.solve_ivp(method=
 'radau_fused')``, whose whole step attempt per lane is the CUDA kernel of
-``ops/radau_fused.py``; and the fused small solve ``ops.linsolve_fused``.
+``ops/radau_fused.py``; the fused small solve ``ops.linsolve_fused``; and
+the matrix-free Radau path for method-of-lines systems
+(``Options(stage_solver='gmres'|'tridiag')``: batched GMRES with probed
+tridiagonal, line or block preconditioners, ``linalg/gmres.py`` and
+``control/precond.py``) with mass matrices (``mass=``), which is plain torch
+as it is plain jnp in the reference.
 
 Precision: f32 contractions must not be demoted to TF32 on the card (a
 demoted contraction stalls the f32 Newton) — the role of the reference's

@@ -1,7 +1,7 @@
 """Carry the JAX package's problem state across to the port.
 
-The "weights" of this system are its ``Options``, ``args``, ``y0`` and
-tangent seeds. ``options_from_jax`` reads a ``janus_tpu`` Options object by
+The "weights" of this system are its ``Options``, ``args``, ``y0``, tangent
+seeds and mass matrix. ``options_from_jax`` reads a ``janus_tpu`` Options object by
 field name (duck-typed: no jax import here) and ``tree_to_torch`` converts
 arrays, so that both packages solve the same problem.
 """
@@ -22,7 +22,9 @@ _RENAMED = {"kernel_lu": "pallas_lu"}
 
 def options_from_jax(opts) -> Options:
     """The port's Options with every field read from the reference's Options
-    (``pallas_lu`` → ``kernel_lu``), each coerced to the port's field type."""
+    (``pallas_lu`` → ``kernel_lu``; the matrix-free fields ``stage_solver``,
+    ``gmres_iters``, ``precond`` and ``precond_block`` among them), each
+    coerced to the port's field type."""
     kw = {}
     for fld in dataclasses.fields(Options):
         val = getattr(opts, _RENAMED.get(fld.name, fld.name))
@@ -31,8 +33,8 @@ def options_from_jax(opts) -> Options:
 
 
 def tree_to_torch(tree, device=None, dtype=None):
-    """Arrays (numpy, or anything with ``__array__``) in a tree of dicts,
-    lists and tuples → torch tensors on ``device``, by default the CUDA card
+    """Arrays (numpy, or anything with ``__array__``: a y0, an args leaf, a
+    mass matrix) in a tree of dicts, lists and tuples → torch tensors on ``device``, by default the CUDA card
     (``device="cpu"`` asks for the CPU; with no card and no device this
     raises ValueError); floating arrays are cast to ``dtype`` when given.
     Python scalars and None stay as they are."""

@@ -18,6 +18,7 @@ import dataclasses
 from typing import Callable, Tuple
 
 import torch
+import torch.nn.functional as F
 
 ROBERTSON_DEFAULTS = {"a": 0.04, "b": 1e4, "c": 3e7}
 
@@ -63,6 +64,54 @@ def robertson_rhs(t, y, args):
     d1 = -a * y1 + b * y2 * y3
     d3 = c * y2 * y2
     return torch.stack([d1, -d1 - d3, d3], dim=-1)
+
+
+# 2-D method-of-lines problems for the matrix-free stage path: 5-point
+# Laplacian stencils on an [ny, nx] grid, Dirichlet-0 boundaries, flattened
+# row-major so each grid ROW is one line of length nx
+# (Options(precond='lines', precond_block=nx)).
+
+def laplacian_2d(u, nx, ny, dx):
+    """5-point Dirichlet-0 Laplacian of u [M, ny*nx] -> [M, ny*nx]."""
+    g = u.reshape(u.shape[0], ny, nx)
+    left = F.pad(g[:, :, :-1], (1, 0))
+    right = F.pad(g[:, :, 1:], (0, 1))
+    up = F.pad(g[:, :-1, :], (0, 0, 1, 0))
+    down = F.pad(g[:, 1:, :], (0, 0, 0, 1))
+    lap = (left + right + up + down - 4.0 * g) / dx ** 2
+    return lap.reshape(u.shape)
+
+
+def heat_2d_rhs(nx, ny, dx):
+    """u' = ν·Δu + r·u(1−u) (2-D Fisher-KPP), y [M, ny*nx], args (ν, r)."""
+    def rhs(t, y, args):
+        nu, r = args
+        return nu * laplacian_2d(y, nx, ny, dx) + r * y * (1.0 - y)
+    return rhs
+
+
+def brusselator_2d_rhs(nx, ny, dx):
+    """2-D Brusselator, SPECIES-MAJOR layout y = [u (ny·nx), v (ny·nx)]:
+
+        u' = Du·Δu + a − (b+1)·u + u²v
+        v' = Dv·Δv + b·u − u²v
+
+    args (a, b, Du, Dv); a/b may carry a batch axis [M] or [M, 1].
+    With Options(precond='lines', precond_block=nx) the cross-species
+    coupling is diagonal at offset ±ny·nx: choose ny ODD so it lands in the
+    opposite line-parity group of the 6-color probe (exact in-line bands).
+    """
+    def rhs(t, y, args):
+        a, b, du_, dv_ = args
+        n = nx * ny
+        u, v = y[..., :n], y[..., n:]
+        a = a[..., None] if getattr(a, "ndim", 0) == 1 else a
+        b = b[..., None] if getattr(b, "ndim", 0) == 1 else b
+        uu = u * u * v
+        fu = du_ * laplacian_2d(u, nx, ny, dx) + a - (b + 1.0) * u + uu
+        fv = dv_ * laplacian_2d(v, nx, ny, dx) + b * u - uu
+        return torch.cat([fu, fv], dim=-1)
+    return rhs
 
 
 @dataclasses.dataclass(frozen=True)

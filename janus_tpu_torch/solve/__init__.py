@@ -1,5 +1,6 @@
-"""Lockstep masked adaptive steppers (the ported subset: fixed-stage radau
-and the fused one-kernel Radau5 step)."""
+"""Lockstep masked adaptive steppers (the ported subset: fixed-stage radau,
+with the dense stage LU or the matrix-free GMRES / tridiagonal stage solvers
+and mass matrices, and the fused one-kernel Radau5 step)."""
 
 from __future__ import annotations
 
@@ -23,7 +24,9 @@ from janus_tpu_torch.solve.radau_fused import solve_radau_fused
 _RADAU_STAGES = {"radau": None, "radau5": 3, "radau9": 5, "radau13": 7}
 
 # method -> feature support matrix, the ported rows of the reference's.
-# solve_ivp RAISES on an unsupported feature instead of dropping it.
+# solve_ivp RAISES on an unsupported feature instead of dropping it. Of the
+# 'radau' row jac= and mass= work; events= and t_eval= are the reference's
+# and raise NotImplementedError in solve_radau until they are ported.
 FEATURES = {
     #                jac    mass   events t_eval
     "radau":        (True,  True,  True,  True),
@@ -58,7 +61,10 @@ def solve_ivp(f: Callable, tspan, y0, method: str = "dopri5", args: Any = None,
     """Batched initial-value-problem solve, as ``janus_tpu.solve.solve_ivp``.
 
     Ported methods: 'radau' (stage count from options.min_stages),
-    'radau5'/'radau9'/'radau13' (s = 3/5/7), fixed stage count, and
+    'radau5'/'radau9'/'radau13' (s = 3/5/7), fixed stage count, with
+    mass= ([D, D] or [M, D, D], singular allowed) and, by
+    Options(stage_solver='gmres'|'tridiag', precond='tridiag'|'lines'|
+    'block'), matrix-free stage solves for method-of-lines systems; and
     'radau_fused' (Radau5 with the whole step attempt in one CUDA kernel;
     on the card f must be in models.problems.DEVICE_PROBLEMS). Every other
     method raises NotImplementedError until its slice is ported (ROADMAP.md).
@@ -116,7 +122,8 @@ def solve_ivp(f: Callable, tspan, y0, method: str = "dopri5", args: Any = None,
     if options.min_stages != options.max_stages:
         raise NotImplementedError(
             "variable-order radau (min_stages != max_stages) is not ported "
-            "to janus_tpu_torch yet; it comes with slice 7 (radaup)")
+            "to janus_tpu_torch yet; it comes with radaup (ROADMAP.md "
+            "Queue 1)")
     return solve_radau(f, t0, tf, y0, args, options, t_eval,
                        jac=jac, mass=mass, events=events,
                        tangents=tangents, args_tangents=args_tangents,

@@ -1,6 +1,7 @@
 """Batched lockstep Radau IIA with simplified Newton — the flagship stiff path.
 
-The port of ``janus_tpu/solve/radau.py``, fixed-stage dense-LU path: one
+The port of ``janus_tpu/solve/radau.py``, fixed stage count, with the dense
+stage LU or the matrix-free stage solvers, and a mass matrix: one
 Python loop whose body is a single step ATTEMPT for every active trajectory.
 Per-trajectory h, Newton convergence, accept/reject, Jacobian reuse and
 factorization reuse are [M] boolean lanes combined with ``torch.where``.
@@ -13,13 +14,25 @@ Control flow against the reference's ``lax.while_loop``/``lax.cond``:
   per lane with ``where``; the port always does the work and selects, which
   changes no number and costs no sync;
 - the IND tangent loop keeps its data-dependent stop: one flag over all lanes
-  per trip, as in the reference.
+  per trip, as in the reference;
+- on the matrix-free path the refined error estimate is a whole GMRES solve,
+  so there it is gated on one more host sync, as the reference gates it.
 
 Stage solves: one real D×D and (s−1)/2 split-real complex 2D×2D systems per
 iteration with factors REUSED across iterations. With
 ``Options(kernel_lu=True)`` the factor and every solve go through the CUDA
 kernels K1/K2 of ``janus_tpu_torch.ops.smalllu`` (their twins on CPU
 tensors); otherwise through the plain torch LU of ``linalg.smalllu``.
+
+Matrix-free stage solves (``Options(stage_solver='gmres'|'tridiag')``): in
+place of LU factors of γ/h·M − J each stage system is solved by batched
+GMRES(k) whose operator applies J·v as a ``torch.func.jvp`` of f at a frozen
+linearization point, preconditioned by a structure probed from J with a few
+colored jvp's (``Options(precond='tridiag'|'lines'|'block')``);
+``'tridiag'`` skips GMRES and solves the structure directly (a modified
+Newton). This is the path for method-of-lines systems (D in the hundreds),
+which the unrolled dense LU and the kernels (D ≤ 16) do not reach. It runs no
+hand-written kernel, as it runs no Pallas kernel in the reference.
 """
 
 from __future__ import annotations
@@ -27,8 +40,18 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
-from torch.func import jvp
+import torch.nn.functional as F
+from torch.func import jvp, vjp
 
+from janus_tpu_torch.control.precond import (blocks_of_jacobian,
+                                             line_tridiag_bands,
+                                             tridiag_bands)
+from janus_tpu_torch.control.precond import \
+    guarded_block_lu as _guarded_block_lu
+from janus_tpu_torch.linalg.gmres import (gmres_batched, mass_matvec,
+                                          tridiag_bands_of,
+                                          tridiag_solve_auto,
+                                          tridiag_solve_complex_auto)
 from janus_tpu_torch.linalg.smalllu import lu_factor, lu_ok, lu_solve
 from janus_tpu_torch.ops.smalllu import lu_factor_t, lu_solve_t
 from janus_tpu_torch.solve import common as cm
@@ -84,17 +107,18 @@ def default_jacobian(f: Callable) -> Callable:
     return jac
 
 
-def _build_iter_matrices(tab, h, jac):
+def _build_iter_matrices(tab, h, jac, mass=None):
     """(a_real [M,D,D], blocks list of [M,2D,2D]): the real and split-real
-    complex stage iteration matrices γ_q/h·I − J."""
-    eye = torch.eye(jac.shape[-1], dtype=jac.dtype, device=jac.device)
-    a_real = (float(tab.mu_real) / h)[..., None, None] * eye - jac
+    complex stage iteration matrices γ_q/h·M − J."""
+    mm = torch.eye(jac.shape[-1], dtype=jac.dtype, device=jac.device) \
+        if mass is None else mass
+    a_real = (float(tab.mu_real) / h)[..., None, None] * mm - jac
     blocks = []
     for p in range((tab.s - 1) // 2):
         mu = tab.mu_complex[p]
         mur, mui = float(mu.real), float(mu.imag)
-        ar = (mur / h)[..., None, None] * eye - jac
-        ai = (mui / h)[..., None, None] * eye            # Im(mu) < 0
+        ar = (mur / h)[..., None, None] * mm - jac
+        ai = (mui / h)[..., None, None] * mm             # Im(mu) < 0
         top = torch.cat([ar, -ai], dim=-1)
         bot = torch.cat([ai, ar], dim=-1)
         blocks.append(torch.cat([top, bot], dim=-2))
@@ -123,11 +147,11 @@ def _kernel_lu_solve(lu, b):
     return x.T.reshape(*batch, d)
 
 
-def _factorize(tab, h, jac, pivot=True, factor=None):
+def _factorize(tab, h, jac, mass=None, pivot=True, factor=None):
     """Build and factor the real and split-complex iteration matrices."""
     dim = jac.shape[-1]
     factor = lu_factor if factor is None else factor
-    a_real, blocks = _build_iter_matrices(tab, h, jac)
+    a_real, blocks = _build_iter_matrices(tab, h, jac, mass)
     lu_r, piv_r = factor(a_real, pivot=pivot)
     ok = lu_ok(lu_r)
     lus, pivs = [], []
@@ -146,12 +170,26 @@ def _factorize(tab, h, jac, pivot=True, factor=None):
     return lu_r, piv_r, lu_c, piv_c, ok
 
 
+def _mass_dot(mass):
+    """w -> M·w on the last axis of w [M, D] or [K, M, s, D], for a mass
+    [D, D] or per lane [M, D, D] (None: the identity)."""
+    if mass is None:
+        return lambda w: w
+    if mass.ndim == 2:
+        return lambda w: torch.einsum("ij,...j->...i", mass, w)
+    return lambda w: torch.einsum(
+        "mij,mj->mi" if w.ndim == 2 else "mij,kmsj->kmsi", mass, w)
+
+
 def _newton(tab, f, t, y, h, z0, scale, tol, solve_real, solve_cplx,
-            run_mask, max_iter, args, syncs):
+            run_mask, max_iter, args, syncs, mass=None):
     """Batched simplified Newton on the transformed collocation system.
     solve_real(b [M,D]) and solve_cplx(p, b [M,2D]) solve the real / p-th
-    split-complex transformed stage system with the step's factors.
+    split-complex transformed stage system with the step's factors (or its
+    matrix-free solvers). With a mass matrix M the collocation system is
+    M·Z = h·A·F (DAE form): residuals use M·w.
     Returns (z, converged, niter, nfev, rate)."""
+    mdot = _mass_dot(mass)
     m, dim = y.shape
     dtype, dev = y.dtype, y.device
     s = tab.s
@@ -185,13 +223,14 @@ def _newton(tab, f, t, y, h, z0, scale, tol, solve_real, solve_cplx,
 
         # transformed residuals and solves
         tif = torch.einsum("ij,mjd->mid", ti_mat, fmat)         # [M, s, D]
-        rhs_r = tif[:, 0, :] - (float(tab.mu_real) / h)[:, None] * w[:, 0, :]
+        rhs_r = tif[:, 0, :] - (float(tab.mu_real) / h)[:, None] \
+            * mdot(w[:, 0, :])
         dws = [solve_real(rhs_r)]
         for p in range(npair):
             mu = tab.mu_complex[p]
             mur, mui = float(mu.real), float(mu.imag)
-            w1 = w[:, 1 + 2 * p, :]
-            w2 = w[:, 2 + 2 * p, :]
+            w1 = mdot(w[:, 1 + 2 * p, :])
+            w2 = mdot(w[:, 2 + 2 * p, :])
             # mu·(w1 + i·w2): real = Re·w1 − Im·w2, imag = Re·w2 + Im·w1
             fr = tif[:, 1 + 2 * p, :] - (mur * w1 - mui * w2) / h[:, None]
             fi = tif[:, 2 + 2 * p, :] - (mur * w2 + mui * w1) / h[:, None]
@@ -242,10 +281,10 @@ def _newton(tab, f, t, y, h, z0, scale, tol, solve_real, solve_cplx,
 
 
 def _tangent_stages(tab, f, t, y, h, z, yd, tol, solve_real, solve_cplx,
-                    mask, args, syncs, max_iter=7, args_d=None):
+                    mask, args, syncs, max_iter=7, args_d=None, mass=None):
     """Internal differentiation (Bock's IND): tangent collocation stages for
     K seed directions through ONE accepted primal step, reusing the step's
-    LU factors.
+    LU factors (or, on the matrix-free path, its frozen GMRES solvers).
 
     The tangent system Zd_i = h Σ_j a_ij·J_j·(yd + Zd_j) is LINEAR; it is
     solved by the same transformed simplified iteration as the primal
@@ -257,6 +296,7 @@ def _tangent_stages(tab, f, t, y, h, z, yd, tol, solve_real, solve_cplx,
     s = tab.s
     t_mat, ti_mat, c_nodes = _consts(tab, y.dtype, y.device)
     npair = (s - 1) // 2
+    mdot = _mass_dot(mass)
     t_st = [t + c_nodes[i] * h for i in range(s)]
     y_st = [y + z[:, i, :] for i in range(s)]
     args_rows = [None] * k_dirs if args_d is None else \
@@ -286,14 +326,15 @@ def _tangent_stages(tab, f, t, y, h, z, yd, tol, solve_real, solve_cplx,
         fd = torch.stack([apply_lin(i, yd + zd[:, :, i, :])
                           for i in range(s)], dim=2)           # [K, M, s, D]
         tif = torch.einsum("ij,kmjd->kmid", ti_mat, fd)
+        mw = mdot(wd)
         rhs_r = tif[:, :, 0] - (float(tab.mu_real) / h)[None, :, None] \
-            * wd[:, :, 0]
+            * mw[:, :, 0]
         dws = [solve_k(rhs_r)]
         for p in range(npair):
             mu = tab.mu_complex[p]
             mur, mui = float(mu.real), float(mu.imag)
-            w1 = wd[:, :, 1 + 2 * p]
-            w2 = wd[:, :, 2 + 2 * p]
+            w1 = mw[:, :, 1 + 2 * p]
+            w2 = mw[:, :, 2 + 2 * p]
             fr = tif[:, :, 1 + 2 * p] - (mur * w1 - mui * w2) / h[None, :, None]
             fi = tif[:, :, 2 + 2 * p] - (mur * w2 + mui * w1) / h[None, :, None]
             sol = solve_kc(p, torch.cat([fr, fi], dim=-1))
@@ -311,15 +352,282 @@ def _tangent_stages(tab, f, t, y, h, z, yd, tol, solve_real, solve_cplx,
     return zd
 
 
+def _gmres_mass_ops(mass, m, dim, like):
+    """(mdotv, dl, d, du) for the mass term of the GMRES stage operator."""
+    if mass is None:
+        return (lambda v: v, torch.zeros_like(like), torch.ones_like(like),
+                torch.zeros_like(like))
+    mm = mass if mass.ndim == 3 else mass.expand(m, dim, dim)
+    return (mass_matvec(mm, m), *tridiag_bands_of(mm))
+
+
+def _cplx_matvec(gr, gi, mdotv, jv, dim):
+    """v [M, 2D] -> (γ·M − J)·v for the complex shift γ = gr + i·gi in the
+    split layout ([:, :D] real, [:, D:] imaginary)."""
+    def mv(v):
+        vr, vi = v[:, :dim], v[:, dim:]
+        mvr, mvi = mdotv(vr), mdotv(vi)
+        outr = gr[:, None] * mvr - gi[:, None] * mvi - jv(vr)
+        outi = gr[:, None] * mvi + gi[:, None] * mvr - jv(vi)
+        return torch.cat([outr, outi], dim=-1)
+    return mv
+
+
+def _tridiag_pc(a_dl, a_d, a_du):
+    """v -> T⁻¹·v for the tridiagonal T with bands (a_dl, a_d, a_du), each
+    [M, D]; the identity on a lane whose diagonal has a zero or a
+    non-finite entry."""
+    ok = (torch.isfinite(a_d) & (a_d != 0.0)).all(dim=-1, keepdim=True)
+    pc_d = torch.where(ok, a_d, 1.0)
+    pc_dl = torch.where(ok, a_dl, 0.0)
+    pc_du = torch.where(ok, a_du, 0.0)
+    return lambda v: tridiag_solve_auto(pc_dl, pc_d, pc_du, v)
+
+
+def _gmres_core(tab, jv, bands, h, mass_ops, iters):
+    """Batched GMRES solvers for the transformed stage systems γ_q/h·M − J.
+
+    jv applies J·v matrix-free; bands [M, 3, D] are J's tridiagonal
+    (dl, d, du) for the tridiagonal preconditioner; mass_ops is
+    ``_gmres_mass_ops`` output. Shared by the forward stage solves and the
+    continuous-adjoint backward solves (there J := −Jᵀ, M := Mᵀ, h := h_b).
+
+    iters == 0 (stage_solver='tridiag'): skip GMRES entirely and DIRECT-
+    solve the tridiagonal part of the stage operator: a modified-Newton
+    iteration matrix, exact for 3-point-stencil (1-D MOL) Jacobians and
+    otherwise merely weaker: the surrounding simplified-Newton convergence
+    monitor polices contraction exactly as it does for stale Jacobians, so
+    a poor match slows or fails loudly, never silently corrupts.
+    """
+    dim = bands.shape[-1]
+    j_bands = bands.unbind(1)                                  # dl, d, du
+    mdotv, *m_bands = mass_ops
+    gam = float(tab.mu_real) / h                               # [M]
+    pc_real = _tridiag_pc(*(gam[:, None] * mb - jb
+                            for mb, jb in zip(m_bands, j_bands)))
+
+    def solve_real(b):
+        if iters == 0:
+            return pc_real(b)
+        return gmres_batched(lambda v: gam[:, None] * mdotv(v) - jv(v), b,
+                             pc_real, iters)[0]
+
+    shifts, bands_c = [], []
+    for mu in tab.mu_complex:
+        gr = float(mu.real) / h                                # [M]
+        gi = float(mu.imag) / h
+        shifts.append((gr, gi))
+        # (re, im) of each band of γ·M − J
+        bands_c.append([(gr[:, None] * mb - jb, gi[:, None] * mb)
+                        for mb, jb in zip(m_bands, j_bands)])
+
+    def solve_cplx(p, b2):
+        def pc(v):
+            return torch.cat(tridiag_solve_complex_auto(
+                *bands_c[p], (v[:, :dim], v[:, dim:])), dim=-1)
+
+        if iters == 0:
+            return pc(b2)
+        return gmres_batched(_cplx_matvec(*shifts[p], mdotv, jv, dim), b2,
+                             pc, iters)[0]
+
+    return solve_real, solve_cplx
+
+
+def _gmres_mass_blocks(mass, m, nb, b, dtype, device):
+    """(mdotv, mblk [M, nb, b, b]) for the block-Jacobi stage preconditioner:
+    the full-mass matvec for the GMRES operator plus the mass's DIAGONAL
+    blocks for the preconditioner (off-block mass couplings are left to the
+    Krylov iteration, like the off-band couplings of the tridiag path)."""
+    if mass is None:
+        eye = torch.eye(b, dtype=dtype, device=device).expand(m, nb, b, b)
+        return (lambda v: v), eye
+    dim = nb * b
+    mm = mass if mass.ndim == 3 else mass.expand(m, dim, dim)
+    mblk = torch.diagonal(mm.reshape(m, nb, b, nb, b), dim1=1,
+                          dim2=3).movedim(-1, 1)
+    return mass_matvec(mm, m), mblk
+
+
+def _block_pc(a_blk):
+    """v [M, D] -> blockdiag(a_blk)⁻¹·v for blocks a_blk [M, nb, b, b]."""
+    m, nb, b, _ = a_blk.shape
+    lu, piv = _guarded_block_lu(a_blk)
+    return lambda v: lu_solve(lu, piv, v.reshape(m, nb, b)).reshape(m, nb * b)
+
+
+def _gmres_block_core(tab, jv, blocks, h, mdotv, mblk, iters):
+    """Block-Jacobi twin of ``_gmres_core``: the preconditioner is the
+    DIAGONAL-BLOCK part of the stage operator γ_q/h·M − J, factored once per
+    step with the batched unrolled LU ([M, nb, b, b]; complex pairs via the
+    2b×2b real embedding [[Ar, −Ai], [Ai, Ar]]). Exact for block-diagonal
+    Jacobians (cell-local reaction terms); the Krylov iteration carries the
+    cross-block (spatial) couplings. iters == 0 direct-solves the blocks
+    (block modified Newton)."""
+    m, nb, b, _ = blocks.shape
+    dim = nb * b
+    gam = float(tab.mu_real) / h                               # [M]
+    pc_real = _block_pc(gam[:, None, None, None] * mblk - blocks)
+
+    def solve_real(rhs):
+        if iters == 0:
+            return pc_real(rhs)
+        return gmres_batched(lambda v: gam[:, None] * mdotv(v) - jv(v), rhs,
+                             pc_real, iters)[0]
+
+    shifts, lus_c = [], []
+    for mu in tab.mu_complex:
+        gr = float(mu.real) / h
+        gi = float(mu.imag) / h
+        ar = gr[:, None, None, None] * mblk - blocks
+        ai = gi[:, None, None, None] * mblk
+        big = torch.cat([torch.cat([ar, -ai], dim=-1),
+                         torch.cat([ai, ar], dim=-1)], dim=-2)  # [M,nb,2b,2b]
+        shifts.append((gr, gi))
+        lus_c.append(_guarded_block_lu(big))
+
+    def solve_cplx(p, b2):
+        def pc(v):
+            vr = v[:, :dim].reshape(m, nb, b)
+            vi = v[:, dim:].reshape(m, nb, b)
+            out = lu_solve(*lus_c[p], torch.cat([vr, vi], dim=-1))
+            return torch.cat([out[..., :b].reshape(m, dim),
+                              out[..., b:].reshape(m, dim)], dim=-1)
+
+        if iters == 0:
+            return pc(b2)
+        return gmres_batched(_cplx_matvec(*shifts[p], mdotv, jv, dim), b2,
+                             pc, iters)[0]
+
+    return solve_real, solve_cplx
+
+
+def precond_probe_fn(f, precond, block, dim):
+    """jac_fn(t, y, args) -> probed preconditioner data for the matrix-free
+    stage path, dispatched on Options(precond=): [M, 3, D] bands for
+    'tridiag'/'lines', [M, nb, b, b] diagonal blocks for 'block'. Shared by
+    every solver family with matrix-free stage solves (radau, ndf)."""
+    if precond not in ("tridiag", "lines", "block"):
+        raise ValueError(f"unknown precond {precond!r}")
+    if precond in ("lines", "block"):
+        if block <= 0 or dim % block != 0:
+            raise ValueError(
+                f"precond={precond!r} needs precond_block > 0 "
+                f"dividing D={dim}, got {block}")
+    if precond == "block":
+        def jac_fn(t, y, a):     # [M, nb, b, b] diagonal blocks
+            return blocks_of_jacobian(lambda yy: f(t, yy, a), y, block)
+        return jac_fn
+
+    def jac_fn(t, y, a):         # [M, 3, D] preconditioner bands
+        def fy(yy):
+            return f(t, yy, a)
+        bands = tridiag_bands(fy, y) if precond == "tridiag" \
+            else line_tridiag_bands(fy, y, block)      # in-line (2-D rows)
+        return torch.stack(bands, dim=1)
+    return jac_fn
+
+
+def _shifted_solver(apply_j, m, dim, pdata, a_coef, b_coef, mass, iters,
+                    precond, block):
+    """(solve, mdotv) for (a·M − b·J)·x = rhs where apply_j(v) is J·v and
+    pdata the probed structure of that same J."""
+    if precond == "block":
+        mdotv, mblk = _gmres_mass_blocks(mass, m, dim // block, block,
+                                         pdata.dtype, pdata.device)
+        pc = _block_pc(a_coef[:, None, None, None] * mblk
+                       - b_coef[:, None, None, None] * pdata)
+    else:
+        mdotv, *m_bands = _gmres_mass_ops(mass, m, dim, pdata[:, 1])
+        pc = _tridiag_pc(*(a_coef[:, None] * mb - b_coef[:, None] * jb
+                           for mb, jb in zip(m_bands, pdata.unbind(1))))
+
+    def solve(rhs):
+        if iters == 0:
+            return pc(rhs)
+        return gmres_batched(
+            lambda v: a_coef[:, None] * mdotv(v) - b_coef[:, None]
+            * apply_j(v), rhs, pc, iters)[0]
+
+    return solve, mdotv
+
+
+def gmres_shifted_solver(f, t_lin, y_lin, args, pdata, a_coef, b_coef, mass,
+                         iters, precond="tridiag", block=0):
+    """(solve, mdotv): solve(rhs) for the REAL shifted system
+    (a·M − b·J)·x = rhs, matrix-free (J·v by jvp at the frozen linearization
+    point), with the probed structure preconditioner selected by
+    ``precond``. a_coef/b_coef are per-lane [M] scalars. The BDF/NDF
+    corrector role; iters == 0 direct-solves the preconditioner structure
+    (modified Newton)."""
+    m, dim = y_lin.shape
+
+    def jv(v):
+        return jvp(lambda yy: f(t_lin, yy, args), (y_lin,), (v,))[1]
+
+    return _shifted_solver(jv, m, dim, pdata, a_coef, b_coef, mass, iters,
+                           precond, block)
+
+
+def gmres_shifted_solver_T(f, t_lin, y_lin, args, pdata, a_coef, b_coef,
+                           mass, iters, precond="tridiag", block=0):
+    """solve(rhs) for the TRANSPOSED real shifted system
+    (a·M − b·J)ᵀ x = rhs, matrix-free: Jᵀ·v is a ``torch.func.vjp`` PULL of
+    the rhs at the frozen linearization point (J is never materialized),
+    Mᵀ·v an explicit matvec, and the preconditioner is the TRANSPOSE of the
+    probed forward structure. Bands: (Jᵀ)_dl[i] = J_du[i−1], (Jᵀ)_du[i] =
+    J_dl[i+1] (line-boundary zeros map to line-boundary zeros, so 'lines'
+    rides the same shift); blocks: per-block transpose. The discrete-adjoint
+    twin of ``gmres_shifted_solver``; iters == 0 direct-solves the
+    transposed preconditioner structure."""
+    m, dim = y_lin.shape
+    pull = vjp(lambda yy: f(t_lin, yy, args), y_lin)[1]
+    mass_t = None if mass is None else mass.mT
+    if precond == "block":
+        pdata_t = pdata.mT
+    else:
+        pdata_t = torch.stack([F.pad(pdata[:, 2, :-1], (1, 0)), pdata[:, 1],
+                               F.pad(pdata[:, 0, 1:], (0, 1))], dim=1)
+    return _shifted_solver(lambda v: pull(v)[0], m, dim, pdata_t, a_coef,
+                           b_coef, mass_t, iters, precond, block)[0]
+
+
+def _gmres_stage_solver(tab, f, t_lin, y_lin, args, pdata, h, mass, iters,
+                        precond="tridiag", block=0):
+    """Matrix-free transformed-stage solvers for stage_solver='gmres'.
+
+    In place of dense LU factors of (γ/h·M − J), each stage system is solved
+    by batched GMRES(k) whose operator applies J·v as a jvp of the rhs at the
+    FROZEN linearization point (t_lin, y_lin), so J is never materialized,
+    preconditioned by the structure selected in Options(precond=):
+    (complex) tridiagonal Thomas/PCR sweeps from probed bands
+    (pdata [M, 3, D]; 'tridiag' = plain 1-D, 'lines' = line-blocked 2-D MOL)
+    or block-Jacobi LU solves from probed diagonal blocks
+    (pdata [M, nb, b, b]; 'block').
+    """
+    m, dim = y_lin.shape
+
+    def jv(v):
+        return jvp(lambda yy: f(t_lin, yy, args), (y_lin,), (v,))[1]
+
+    if precond == "block":
+        mdotv, mblk = _gmres_mass_blocks(mass, m, dim // block, block,
+                                         y_lin.dtype, y_lin.device)
+        return _gmres_block_core(tab, jv, pdata, h, mdotv, mblk, iters)
+    mass_ops = _gmres_mass_ops(mass, m, dim, pdata[:, 1])
+    return _gmres_core(tab, jv, pdata, h, mass_ops, iters)
+
+
 _LATER = {
-    "t_eval": "slice 2 (dense output)", "events": "slice 2 (events)",
-    "dense": "slice 2 (dense output)", "quad": "slice 2 (quadratures)",
-    "mass": "slice 2 (mass matrices / DAEs)",
-    "step_args": "slice 2 (step_args)",
-    "record_steps": "slice 2 (step recording)",
-    "qr_fallback": "slice 2 (QR fallback)",
-    "_mesh_size": "slice 4 (continuous adjoint)",
-    "_h0": "slice 4 (continuous adjoint)",
+    "t_eval": "the rest of the radau features (dense output)",
+    "events": "the rest of the radau features (events)",
+    "dense": "the rest of the radau features (dense output)",
+    "quad": "the rest of the radau features (quadratures)",
+    "step_args": "the rest of the radau features (step_args)",
+    "record_steps": "the rest of the radau features (step recording)",
+    "qr_fallback": "the rest of the radau features (QR fallback)",
+    "_mesh_size": "the continuous adjoint",
+    "_h0": "the continuous adjoint",
 }
 
 
@@ -346,6 +654,12 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
     in ``Solution.sens`` [K, M, D]. args_tangents: optional pytree matching
     ``args`` with a leading K axis (parameter seed directions).
 
+    mass: optional mass matrix [D, D] or per lane [M, D, D] of M·y' = f,
+    singular allowed (index-1 DAEs; higher index with Options(nind1/2/3)).
+    Options(stage_solver='gmres'|'tridiag') solves the stage systems
+    matrix-free (module docstring); f must then be traceable by
+    ``torch.func.jvp`` and jac= is refused.
+
     The host syncs of the last solve are in ``solve_radau.host_syncs``.
     """
     opts = options if options is not None else Options()
@@ -358,13 +672,11 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
         if opts.qr_fallback:
             raise ValueError("kernel_lu and qr_fallback are mutually "
                              "exclusive (pick one stage-solve override)")
-    if opts.stage_solver != "lu":
-        raise NotImplementedError(
-            f"stage_solver={opts.stage_solver!r} is not ported to "
-            "janus_tpu_torch yet; it comes with slice 3 (matrix-free radau, "
-            "ROADMAP.md Queue 1)")
-    for name, val in (("t_eval", t_eval), ("events", events),
-                      ("mass", mass), ("quad", quad),
+    use_gmres = opts.stage_solver != "lu"
+    if use_gmres and jac is not None:
+        raise ValueError("stage_solver='gmres' is matrix-free (J·v by jvp, "
+                         "3-probe tridiagonal preconditioner); drop jac=")
+    for name, val in (("t_eval", t_eval), ("events", events), ("quad", quad),
                       ("step_args", step_args), ("_h0", _h0)):
         if val is not None:
             _not_ported(name)
@@ -382,8 +694,19 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
     npair = (s - 1) // 2
     syncs = _HostSyncs()
 
-    factor = _kernel_lu_factor if opts.kernel_lu else None
-    jac_fn = jac if jac is not None else default_jacobian(f)
+    use_kernel = opts.kernel_lu and not use_gmres
+    factor = _kernel_lu_factor if use_kernel else None
+    if use_gmres:
+        jac_fn = precond_probe_fn(f, opts.precond, opts.precond_block, dim)
+        gmres_iters = 0 if opts.stage_solver == "tridiag" \
+            else opts.gmres_iters
+    else:
+        jac_fn = jac if jac is not None else default_jacobian(f)
+    if mass is not None:
+        mass = cm.like(mass, y0)
+        if tuple(mass.shape) not in ((dim, dim), (m, dim, dim)):
+            raise ValueError(f"mass must be [{dim}, {dim}] or [{m}, {dim}, "
+                             f"{dim}], got {tuple(mass.shape)}")
     newton_tol = (opts.newton_tol if opts.newton_tol > 0
                   else cm.derived_newton_tol(dtype, opts.rtol))
     max_iter = opts.newton_max_iter
@@ -391,6 +714,7 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
     e_vec = torch.as_tensor(tab.e, dtype=dtype, device=dev)
     c_nodes = torch.as_tensor(tab.c, dtype=dtype, device=dev)
     ind_exp, use_index = cm.index_weights(opts, dim, dtype, dev)
+    mdot = _mass_dot(mass)
 
     use_sens = tangents is not None or args_tangents is not None
     args_d = None
@@ -411,12 +735,17 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
         yd = y0.new_zeros((k_args if args_d is not None else 0, m, dim))
 
     f0 = f(t0, y0, args)
-    if opts.h0 == 0.0:
+    direction = torch.where(tf >= t0, 1.0, -1.0).to(dtype)
+    if opts.h0 != 0.0:
+        h_st = torch.full((m,), opts.h0, dtype=dtype, device=dev) * direction
+    elif mass is None:
         h_st = cm.initial_step(f, t0, y0, f0, tf, s, opts.rtol, opts.atol,
                                args, opts.max_step)
     else:
-        direction = torch.where(tf >= t0, 1.0, -1.0).to(dtype)
-        h_st = torch.full((m,), opts.h0, dtype=dtype, device=dev) * direction
+        # Hairer's hinit treats f0 as a derivative, which is wrong for the
+        # algebraic rows of a singular-mass system: start small and let the
+        # controller grow
+        h_st = torch.clamp(torch.abs(tf - t0) * 1e-2, max=1e-3) * direction
 
     stats = cm.zero_stats(m, ("nfev", "njev", "nlu", "nsteps", "naccept",
                               "nreject", "nnewton"), dev)
@@ -427,10 +756,18 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
 
     t, y = t0, y0
     t_lo, y_lo = zeros(m), zeros(m, dim)
-    jac_m = zeros(m, dim, dim)
-    lu_real, piv_real = zeros(m, dim, dim), zeros(m, dim, dt=torch.int32)
-    lu_cplx = zeros(m, npair, 2 * dim, 2 * dim)
-    piv_cplx = zeros(m, npair, 2 * dim, dt=torch.int32)
+    if use_gmres:
+        # the carried "Jacobian" is the probed preconditioner data, and the
+        # frozen linearization point of J·v moves with it; nothing to factor
+        pb = opts.precond_block
+        jac_m = zeros(m, dim // pb, pb, pb) if opts.precond == "block" \
+            else zeros(m, 3, dim)
+        t_lin, y_lin = t0, y0
+    else:
+        jac_m = zeros(m, dim, dim)
+        lu_real, piv_real = zeros(m, dim, dim), zeros(m, dim, dt=torch.int32)
+        lu_cplx = zeros(m, npair, 2 * dim, 2 * dim)
+        piv_cplx = zeros(m, npair, 2 * dim, dt=torch.int32)
     h_fact = zeros(m)
     current_jac = zeros(m, dt=torch.bool)
     need_jac = torch.ones((m,), dtype=torch.bool, device=dev)
@@ -462,31 +799,43 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
 
         # ---- Jacobian refresh (lanes that need it) -----------------------
         needj = need_jac & active
-        jmat = torch.where(needj[:, None, None], jac_fn(t, y, args), jac_m)
+        jnew = jac_fn(t, y, args)
+        jmat = torch.where(needj.reshape((m,) + (1,) * (jnew.ndim - 1)),
+                           jnew, jac_m)
         current_jac = current_jac | needj
 
         # ---- factorization (lanes that need it) --------------------------
         needf = active & (needj | (h != h_fact))
-        lr, pr, lc, pc, ok = _factorize(tab, h, jmat, opts.pivoting,
-                                        factor=factor)
-        lu_r = torch.where(needf[:, None, None], lr, lu_real)
-        piv_r = torch.where(needf[:, None], pr, piv_real)
-        lu_c = torch.where(needf[:, None, None, None], lc, lu_cplx)
-        piv_c = torch.where(needf[:, None, None], pc, piv_cplx)
-        fact_ok = torch.where(needf, ok, True)
         h_fact_now = torch.where(needf, h, h_fact)
-        if opts.kernel_lu:
-            def solve_real(b, _lu=lu_r):
-                return _kernel_lu_solve(_lu, b)
-
-            def solve_cplx(p, b, _lu=lu_c):
-                return _kernel_lu_solve(_lu[:, p], b)
+        if use_gmres:
+            t_lin = torch.where(needj, t, t_lin)
+            y_lin = torch.where(needj[:, None], y, y_lin)
+            fact_ok = torch.isfinite(jmat).flatten(1).all(dim=1)
+            # rebuilt every attempt from the CURRENT h (no factors to reuse)
+            solve_real, solve_cplx = _gmres_stage_solver(
+                tab, f, t_lin, y_lin, args, jmat, h, mass, gmres_iters,
+                precond=opts.precond, block=opts.precond_block)
         else:
-            def solve_real(b, _lu=lu_r, _piv=piv_r):
-                return lu_solve(_lu, _piv, b)
+            lr, pr, lc, pc, ok = _factorize(tab, h, jmat, mass, opts.pivoting,
+                                            factor=factor)
+            lu_r = torch.where(needf[:, None, None], lr, lu_real)
+            piv_r = torch.where(needf[:, None], pr, piv_real)
+            lu_c = torch.where(needf[:, None, None, None], lc, lu_cplx)
+            piv_c = torch.where(needf[:, None, None], pc, piv_cplx)
+            lu_real, piv_real, lu_cplx, piv_cplx = lu_r, piv_r, lu_c, piv_c
+            fact_ok = torch.where(needf, ok, True)
+            if use_kernel:
+                def solve_real(b, _lu=lu_r):
+                    return _kernel_lu_solve(_lu, b)
 
-            def solve_cplx(p, b, _lu=lu_c, _piv=piv_c):
-                return lu_solve(_lu[:, p], _piv[:, p], b)
+                def solve_cplx(p, b, _lu=lu_c):
+                    return _kernel_lu_solve(_lu[:, p], b)
+            else:
+                def solve_real(b, _lu=lu_r, _piv=piv_r):
+                    return lu_solve(_lu, _piv, b)
+
+                def solve_cplx(p, b, _lu=lu_c, _piv=piv_c):
+                    return lu_solve(_lu[:, p], _piv[:, p], b)
 
         singular = active & ~fact_ok
 
@@ -506,7 +855,7 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
         run_newton = active & fact_ok
         z, nconv, niter, nfev, rate = _newton(
             tab, f, t, y, h, z0, scale_n, newton_tol, solve_real, solve_cplx,
-            run_newton, max_iter, args, syncs)
+            run_newton, max_iter, args, syncs, mass=mass)
         conv = run_newton & nconv
         newton_fail = run_newton & ~nconv
 
@@ -524,7 +873,7 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
         else:
             y_new, y_lo_new = y + z[:, -1, :], y_lo
             t_new, t_lo_new = t + h, t_lo
-        ze = torch.einsum("s,msd->md", e_vec, z) / h[:, None]
+        ze = mdot(torch.einsum("s,msd->md", e_vec, z) / h[:, None])
         err1 = solve_real(f0 + ze)
         scale_e = opts.atol + opts.rtol * torch.maximum(torch.abs(y),
                                                         torch.abs(y_new))
@@ -534,10 +883,13 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
         enorm1 = torch.where(torch.isfinite(enorm1), enorm1, 1e10)
 
         refine = conv & rejected & (enorm1 > 1.0)
-        err2 = solve_real(f(t, y + err1, args) + ze)
-        en2 = cm.rms_norm(err2, scale_e)
-        enorm = torch.where(refine, torch.where(torch.isfinite(en2), en2,
-                                                1e10), enorm1)
+        if use_gmres and not syncs.any(refine):
+            enorm = enorm1
+        else:
+            err2 = solve_real(f(t, y + err1, args) + ze)
+            en2 = cm.rms_norm(err2, scale_e)
+            enorm = torch.where(refine, torch.where(torch.isfinite(en2), en2,
+                                                    1e10), enorm1)
 
         accept = conv & (enorm <= 1.0)
         reject_err = conv & (enorm > 1.0)
@@ -573,7 +925,7 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
         if use_sens:
             zd = _tangent_stages(tab, f, t, y, h, z, yd, newton_tol,
                                  solve_real, solve_cplx, accept, args, syncs,
-                                 args_d=args_d)
+                                 args_d=args_d, mass=mass)
             yd = torch.where(accept[None, :, None], yd + zd[:, :, -1, :], yd)
 
         # ---- warm-start polynomial ----------------------------------------
@@ -623,7 +975,6 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
         y_lo = torch.where(accept[:, None], y_lo_new, y_lo)
         f0 = f_new
         jac_m = jmat
-        lu_real, piv_real, lu_cplx, piv_cplx = lu_r, piv_r, lu_c, piv_c
         # deadzone lanes keep factors; everyone else refactors next time
         h_fact = torch.where(accept & ~deadzone, 0.0,
                              torch.where(reject_err | nf_fresh, 0.0,

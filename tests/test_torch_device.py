@@ -6,8 +6,14 @@ to the CUDA card unless the caller asks for another device with
 ValueError instead of running on the CPU. The card is hidden here by
 monkeypatching ``torch.cuda.is_available``, so the tests behave the same on
 a machine that has one. A solve of a numpy y0 with ``device="cpu"`` equals
-the solve of the same y0 as a CPU tensor exactly.
+the solve of the same y0 as a CPU tensor exactly. The matrix-free stage
+solvers and ``mass=`` follow the same rule, and a mass on another device
+than y0 is refused. No module of the package imports jax or the JAX package
+(a walk over its sources).
 """
+
+import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -64,6 +70,55 @@ def test_numpy_y0_without_card_raises(entry, no_card):
             solve(vdp_rhs, 0.0, 1.0, Y0, 50.0)
         else:
             solve_ivp(vdp_rhs, (0.0, 1.0), Y0, method=entry, **KW)
+
+
+def _decay(t, y, args):
+    return -args * y
+
+
+MATRIX_FREE = {
+    "tridiag": dict(stage_solver="tridiag"),
+    "gmres": dict(stage_solver="gmres", gmres_iters=4),
+    "gmres-lines": dict(stage_solver="gmres", gmres_iters=4, precond="lines",
+                        precond_block=2),
+    "gmres-block": dict(stage_solver="gmres", gmres_iters=4, precond="block",
+                        precond_block=2),
+    "mass": dict(mass=np.diag([1.0, 2.0])),
+    "mass-gmres": dict(mass=np.diag([1.0, 2.0]), stage_solver="gmres",
+                       gmres_iters=4),
+}
+
+
+@pytest.mark.parametrize("case", list(MATRIX_FREE))
+def test_matrix_free_and_mass_obey_the_device_rule(case, no_card):
+    kw = dict(MATRIX_FREE[case], args=3.0, rtol=1e-6, atol=1e-9)
+    with pytest.raises(ValueError, match="pass y0 as a CPU tensor"):
+        solve_ivp(_decay, (0.0, 1.0), Y0, method="radau5", **kw)
+    got = solve_ivp(_decay, (0.0, 1.0), Y0, method="radau5", device="cpu",
+                    **kw)
+    ref = solve_ivp(_decay, (0.0, 1.0), torch.from_numpy(Y0),
+                    method="radau5", **kw)
+    assert bool((ref.status == 1).all())
+    _equal(got, ref)
+
+
+def test_mass_on_another_device_is_refused(no_card):
+    with pytest.raises(ValueError, match="the device is taken from y0"):
+        solve_ivp(_decay, (0.0, 1.0), torch.from_numpy(Y0), method="radau5",
+                  args=3.0, mass=torch.eye(2, dtype=torch.float64,
+                                           device="meta"))
+
+
+def test_no_module_of_the_port_imports_jax():
+    root = pathlib.Path(__file__).resolve().parents[1]
+    sources = sorted((root / "janus_tpu_torch").rglob("*.py"))
+    sources.append(root / "chip_smoke.py")
+    assert len(sources) > 15
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|janus_tpu)([.\s]|$)",
+                         re.MULTILINE)
+    for path in sources:
+        hit = pattern.search(path.read_text())
+        assert hit is None, f"{path.relative_to(root)}: {hit.group(0)!r}"
 
 
 def test_default_device_is_the_card_when_there_is_one(monkeypatch):

@@ -24,13 +24,23 @@ that 65,536 lanes are resident at once (VdP, and Robertson in f32;
 Robertson in f64 is built for 2 blocks per SM and spills nothing); a
 numpy y0 solving on the card by default, and a CUDA y0 accepted with
 device="cuda" or "cuda:0".
+
+The matrix-free Radau path (no hand-written kernel): Thomas against PCR on
+a CUDA tensor, real and complex, D=128, to 1e-10 relative, and the
+tridiagonal algorithm a CUDA tensor gets by default; the D=128 Fisher-KPP
+line with stage_solver='tridiag' on the card against the same solve on the
+CPU for 8 lanes (status and step counts equal, y to rtol 1e-6 / atol 1e-9:
+the card runs ``CUDA_TRIDIAG`` where the CPU runs Thomas, and they agree to
+~1e-12 per solve).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from janus_tpu_torch.bench import mol
 from janus_tpu_torch.interop import tree_to_torch
+from janus_tpu_torch.linalg import gmres as gm
 from janus_tpu_torch.models.problems import robertson_rhs, vdp_rhs
 from janus_tpu_torch.ops import radau_fused as k4
 from janus_tpu_torch.ops import smalllu
@@ -187,3 +197,45 @@ def test_k4_refuses_unregistered_f_on_card():
     with pytest.raises(ValueError, match="registered problems"):
         k4.radau5_step(state, tf_row, lambda t, y, a: vdp_rhs(t, y, a),
                        args, consts)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1024, 65536])
+def test_thomas_matches_pcr_on_card(m):
+    dev = _card()
+    rng = np.random.default_rng(m)
+
+    def z(shift=0.0):
+        return torch.as_tensor(rng.normal(size=(m, 128)) + shift, device=dev)
+
+    real = (z(), z(6.0), z(), z())
+    x_t = gm.tridiag_solve_auto(*real, method="thomas")
+    x_p = gm.tridiag_solve_auto(*real, method="pcr")
+    assert float((x_t - x_p).abs().max() / x_t.abs().max()) <= 1e-10
+    default = {"thomas": x_t, "pcr": x_p}[gm.CUDA_TRIDIAG]
+    assert torch.equal(gm.tridiag_solve_auto(*real), default)
+    cplx = ((z(), z()), (z(6.0), z()), (z(), z()), (z(), z()))
+    c_t = torch.stack(gm.tridiag_solve_complex_auto(*cplx, method="thomas"))
+    c_p = torch.stack(gm.tridiag_solve_complex_auto(*cplx, method="pcr"))
+    assert float((c_t - c_p).abs().max() / c_t.abs().max()) <= 1e-10
+    default = {"thomas": c_t, "pcr": c_p}[gm.CUDA_TRIDIAG]
+    assert torch.equal(torch.stack(gm.tridiag_solve_complex_auto(*cplx)),
+                       default)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solver", ["tridiag", "gmres"])
+def test_mol_solve_on_card_matches_cpu(solver):
+    dev = _card()
+    opts = Options(stage_solver=solver, gmres_iters=6, **mol.MOL_OPTS)
+    sols = {}
+    for where in (dev, torch.device("cpu")):
+        rhs, y0, args = mol.mol_line(8, torch.float64, where)
+        sols[where.type] = mol.solve_radau(rhs, 0.0, mol.TF_LINE, y0,
+                                           args=args, options=opts)
+    got, ref = sols["cuda"], sols["cpu"]
+    assert got.y.is_cuda and bool((got.status == 1).all())
+    assert torch.equal(got.status.cpu(), ref.status)
+    for k in ("naccept", "nreject", "nnewton"):
+        assert torch.equal(got.stats[k].cpu(), ref.stats[k]), k
+    torch.testing.assert_close(got.y.cpu(), ref.y, rtol=1e-6, atol=1e-9)

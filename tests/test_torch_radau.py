@@ -144,12 +144,11 @@ UNPORTED = {
     "events": dict(events=lambda t, y, a: y[:, 0]),
     "dense": dict(dense=8),
     "quad": dict(quad=lambda t, y, a: y[:, 0]),
-    "mass": dict(mass=torch.eye(2, dtype=torch.float64)),
     "step_args": dict(step_args=torch.ones((3, 1), dtype=torch.float64)),
     "record_steps": dict(options=Options(record_steps=4)),
     "qr_fallback": dict(options=Options(qr_fallback=True)),
-    "stage_solver": dict(options=Options(stage_solver="gmres")),
     "_mesh_size": dict(_mesh_size=16),
+    "_h0": dict(_h0=0.1),
 }
 
 

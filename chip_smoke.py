@@ -70,10 +70,23 @@ Phases, one line each (everything is made from fixed seeds):
     against scipy's Radau, ms per solve, steps, host syncs, launches and the
     device's busy share, and that no hand-written kernel was launched (this
     path runs none, as it runs no Pallas kernel in the reference); the same
-    lines through GMRES(8) and GMRES(25); a 32x32 heat grid with
-    precond='lines'; the interleaved 2-species line with precond='block';
-    K=2 IND sensitivities through the GMRES stage solvers against a central
-    difference.
+    lines through GMRES(8), and through GMRES(25) over a quarter of the
+    span; a 32x32 heat grid with precond='lines'; the interleaved 2-species
+    line with precond='block'; K=2 IND sensitivities through the GMRES stage
+    solvers (a quarter of the span) against a central difference;
+14. the continuous adjoint radau_adjoint (janus_tpu_torch.bench.mol, phases
+    ``adjoint`` and ``vdp_adjoint``): bench.py's MOL-adjoint gradient -- the
+    D=128 line, stage_solver='tridiag', adjoint_steps=48, loss sum(x y(T)^2),
+    gradient in y0 and the rates by loss.backward() -- at M = 1,024 in f64
+    and f32 and at M = 65,536 in f64: gradients finite, ms per gradient and
+    of the forward alone, host syncs, launches, busy share, max(naccept),
+    mesh bytes, peak memory; at 1,024 lanes the rate gradient of three lanes
+    against central differences, the y0 gradient against IND, and 4 lanes on
+    the card against the CPU; K1-K4 launch 0 times there (the path runs no
+    kernel, as it runs no Pallas kernel in the reference). Then the adjoint
+    whose forward solve goes through K1/K2: 65,536 Van der Pol lanes, Radau5,
+    kernel_lu=True: K1 and K2 launched, gradients finite, ms per gradient,
+    d/dmu against a central difference.
 
 Then one JSON line with the kernels' records, nvidia-smi's line, and last
 {"ok": true, "device": {...}}. Any failed check raises; no phase's failure
@@ -568,7 +581,9 @@ def main():
                     Options(rtol=1e-4, atol=1e-7), sol_f)[1], flush=True)
 
     # ---- 13. the matrix-free Radau path ---------------------------------------
-    mol.run(dev)           # a failed check raises mol.MolCheckFailed
+    # ---- 14. the continuous adjoint (the last two phases of mol.PHASES) ------
+    report = mol.run(dev)   # a failed check raises mol.MolCheckFailed
+    adj_launches = report["vdp_adjoint"]["launches"]
 
     k1, k1p, k2, k2p, extra = times[(torch.float64, 4)]
     (b1, by1, lib1), (b2, by2, lib2) = (extra["lu_factor_t"],
@@ -579,13 +594,15 @@ def main():
          "replaces": "janus_tpu/ops/smalllu_pallas.py:84",
          "launches": launches["K1"], "max_abs_err": err["K1"]["float64"],
          "ms": k1, "plain_ms": k1p, "bound_ms": b1, "bound_by": by1,
-         "library_ms": lib1, "shape": f"D=4 M={M} float64"},
+         "library_ms": lib1, "shape": f"D=4 M={M} float64",
+         "launches_vdp_adjoint": adj_launches["K1"]},
         {"name": "lu_solve_t", "route": "cuda",
          "source": "janus_tpu_torch/csrc/smalllu.cu",
          "replaces": "janus_tpu/ops/smalllu_pallas.py:115",
          "launches": launches["K2"], "max_abs_err": err["K2"]["float64"],
          "ms": k2, "plain_ms": k2p, "bound_ms": b2, "bound_by": by2,
-         "library_ms": lib2, "shape": f"D=4 M={M} float64"},
+         "library_ms": lib2, "shape": f"D=4 M={M} float64",
+         "launches_vdp_adjoint": adj_launches["K2"]},
         {"name": "linsolve_fused", "route": "cuda",
          "source": "janus_tpu_torch/csrc/smalllu.cu",
          "replaces": "janus_tpu/ops/smalllu_pallas.py:55",

@@ -17,7 +17,10 @@ the matrix-free Radau path for method-of-lines systems
 (``Options(stage_solver='gmres'|'tridiag')``: batched GMRES with probed
 tridiagonal, line or block preconditioners, ``linalg/gmres.py`` and
 ``control/precond.py``) with mass matrices (``mass=``), which is plain torch
-as it is plain jnp in the reference.
+as it is plain jnp in the reference; dense output, ``t_eval=`` and
+quadratures on ``solve_radau``; and the continuous adjoint
+``solve.radau_adjoint`` (``solve/adjoint.py``), a ``torch.autograd.Function``
+whose backward sweeps the forward solve's accepted-step mesh, plain torch too.
 
 Precision: f32 contractions must not be demoted to TF32 on the card (a
 demoted contraction stalls the f32 Newton) — the role of the reference's

@@ -1,7 +1,9 @@
-"""Drive, check and measure the matrix-free Radau path on a card.
+"""Drive, check and measure the matrix-free Radau path and the continuous
+adjoint on a card.
 
-The method-of-lines (MOL) phases of ``chip_smoke.py``, also a probe of their
-own, run from the root of a checkout on a machine with a CUDA card:
+The method-of-lines (MOL) and adjoint phases of ``chip_smoke.py``, also a
+probe of their own, run from the root of a checkout on a machine with a CUDA
+card:
 
     python3 -m janus_tpu_torch.bench.mol [--only PHASE ...] [--json PATH]
 
@@ -18,19 +20,41 @@ Phases (``PHASES``), each raising ``MolCheckFailed`` when its check fails:
   from one solve under torch.profiler the launches, the device's busy time
   and share, and the device and host time inside the tridiagonal sweeps,
   the jvp's and the right-hand side;
-- ``gmres``: the same lines with stage_solver='gmres', gmres_iters 8 and 25;
-  final state within 1e-4 relative of the tridiag solve's;
+- ``gmres``: the same lines with stage_solver='gmres', gmres_iters 8, and
+  gmres_iters 25 over t in [0, 0.1]; final state within 1e-4 relative of the
+  tridiag solve's;
 - ``heat``: 2-D Fisher-KPP on a 32x32 grid (D=1,024), M=256, precond='lines',
   GMRES(8); lane 0 against scipy;
 - ``block``: the cell-interleaved stiff 2-species line (D=48), M=1,024,
   precond='block' with 2x2 blocks, GMRES(10); lane 0 against scipy;
 - ``ind``: K=2 IND seed directions through the GMRES(8) stage solvers on the
-  D=128 line, M=1,024; sens finite and within 1e-4 (relative to its largest
-  entry) of a central finite difference of 8-lane solves.
+  D=128 line, M=1,024, t in [0, 0.1]; sens finite and within 1e-4 (relative to its largest
+  entry) of a central finite difference of 8-lane solves;
+- ``adjoint``: ``bench.py``'s MOL-adjoint gradient at full width -- the same
+  line and options with adjoint_steps=48, loss sum(x y(T)^2), gradient with
+  respect to y0 [M, 128] and the rates [M, 1] by ``radau_adjoint`` and
+  ``loss.backward()`` -- at M = 1,024 in f64 and f32 and at M = 65,536 in
+  f64: every gradient finite; ms per gradient and of the forward alone
+  (median of 3 after a warm-up, CUDA events; f32 once), host syncs,
+  max(naccept) against 48, the mesh's bytes, the peak allocated memory, and
+  in f64 from one gradient under torch.profiler the launches and the busy
+  share; at 1,024
+  lanes in f64 also the rate gradient of lanes 0, M/2, M-1 within 2e-3
+  relative of a central difference of forward solves at rtol 1e-8, the y0
+  gradient along one random direction within 2e-3 of the IND directional
+  derivative (``tangents=``, at rtol 1e-8), and a 4-lane gradient on the
+  card within 1e-8
+  (relative to its largest entry) of the same call on the CPU;
+- ``vdp_adjoint``: the adjoint with its forward solve through the kernels K1
+  and K2 -- 65,536 stiff Van der Pol lanes (y0 = (2, 0), mu = 1e3, t in
+  [0, 1], Radau5, rtol 1e-6, pivoting=False, kernel_lu=True, analytic
+  Jacobian), gradient of sum(y(T)^2) with respect to y0 and mu: K1 and K2
+  launched, gradients finite, ms per gradient, and d/dmu of 3 lanes within
+  2e-3 relative of a central difference at rtol 1e-9.
 
-None of this path launches a hand-written kernel (it runs no Pallas kernel in
-the reference either); ``run`` resets the kernels' launch counts before the
-MOL solve and checks that they are still 0 after it.
+None of the MOL path launches a hand-written kernel (it runs no Pallas kernel
+in the reference either); ``run`` resets the kernels' launch counts before the
+MOL solve and the MOL gradient and checks that they are still 0 after them.
 """
 
 from __future__ import annotations
@@ -52,7 +76,9 @@ from janus_tpu_torch.bench.kernels import events_ms
 from janus_tpu_torch.control import precond
 from janus_tpu_torch.linalg import gmres as gm
 from janus_tpu_torch.models.problems import heat_2d_rhs
-from janus_tpu_torch.solve import Options, radau
+from janus_tpu_torch.models.problems import vdp_jac, vdp_rhs
+from janus_tpu_torch.solve import Options, adjoint, radau
+from janus_tpu_torch.solve.adjoint import radau_adjoint
 from janus_tpu_torch.solve.radau import solve_radau
 
 D_LINE = 128
@@ -160,9 +186,10 @@ def check_line_lanes(sol, y0, rates, what):
 
 @contextlib.contextmanager
 def _labelled():
-    """Name the tridiagonal sweeps, the jvp's and (through ``wrap_rhs``) the
-    right-hand side for torch.profiler while a solve runs: the solver's
-    module-level names are wrapped for the time of the block."""
+    """Name the tridiagonal sweeps, the jvp's, the adjoint's vjp builds and
+    (through ``wrap_rhs``) the right-hand side for torch.profiler while a
+    solve runs: the solver's module-level names are wrapped for the time of
+    the block."""
     from torch.profiler import record_function
 
     def named(label, fn):
@@ -173,11 +200,11 @@ def _labelled():
 
     saved = [(radau, "tridiag_solve_auto"),
              (radau, "tridiag_solve_complex_auto"),
-             (radau, "jvp"), (precond, "jvp")]
+             (radau, "jvp"), (precond, "jvp"), (adjoint, "vjp")]
     saved = [(mod, name, getattr(mod, name)) for mod, name in saved]
     try:
         for mod, name, fn in saved:
-            label = "mol.jvp" if name == "jvp" else "mol.tridiag"
+            label = "mol." + (name if name in ("jvp", "vjp") else "tridiag")
             setattr(mod, name, named(label, fn))
         yield lambda f: named("mol.rhs", f)
     finally:
@@ -219,6 +246,25 @@ def profile_solve(solve):
             "profiled_wall_ms": wall_ms,
             "labels": {k: {"calls": v[0], "device_ms": v[1], "host_ms": v[2]}
                        for k, v in labels.items()}}
+
+
+ADJ_STEPS = 48
+
+
+def _kernel_launches():
+    from janus_tpu_torch.ops import radau_fused as k4
+    from janus_tpu_torch.ops import smalllu
+    return {"K1": smalllu.lu_factor_t.launches,
+            "K2": smalllu.lu_solve_t.launches,
+            "K3": smalllu.linsolve_fused.launches,
+            "K4": k4.radau5_step.launches}
+
+
+def _reset_kernel_launches():
+    from janus_tpu_torch.ops import radau_fused as k4
+    from janus_tpu_torch.ops import smalllu
+    smalllu.reset_launch_counts()
+    k4.reset_launch_counts()
 
 
 # ---- phases ----------------------------------------------------------------
@@ -265,31 +311,23 @@ def tridiag_phase(dev, reps=5):
     return out
 
 
-def _line_solve(m, dtype, dev, opts, wrap=None):
+def _line_solve(m, dtype, dev, opts, wrap=None, tf=TF_LINE):
     rhs, y0, args = mol_line(m, dtype, dev)
-    return solve_radau(rhs if wrap is None else wrap(rhs), 0.0, TF_LINE, y0,
+    return solve_radau(rhs if wrap is None else wrap(rhs), 0.0, tf, y0,
                        args=args, options=opts)
 
 
 def mol_phase(dev, m, dtype, reps=3):
     """The MOL tridiag cell at M lanes: checks, times and one profile."""
-    from janus_tpu_torch.ops import radau_fused as k4
-    from janus_tpu_torch.ops import smalllu
-
     opts = Options(stage_solver="tridiag", **MOL_OPTS)
     name = f"MOL tridiag M={m} {str(dtype)[6:]}"
     _, y0, (_, rates) = mol_line(m, dtype, dev)
-    smalllu.reset_launch_counts()
-    k4.reset_launch_counts()
+    _reset_kernel_launches()
     sol = _line_solve(m, dtype, dev, opts)          # also the warm-up
     torch.cuda.synchronize()
-    kernel_launches = (smalllu.lu_factor_t.launches
-                       + smalllu.lu_solve_t.launches
-                       + smalllu.linsolve_fused.launches
-                       + k4.radau5_step.launches)
-    if kernel_launches != 0:
+    if any(_kernel_launches().values()):
         raise MolCheckFailed(f"{name}: the matrix-free path launched a "
-                             f"kernel {kernel_launches} times")
+                             f"kernel: {_kernel_launches()}")
     syncs = solve_radau.host_syncs
     worst = check_line_lanes(sol, y0, rates, name)
     ms = statistics.median(
@@ -319,24 +357,30 @@ def mol_phase(dev, m, dtype, reps=3):
 
 
 def gmres_phase(dev, y_tridiag, m=1024):
-    """The MOL lines through GMRES(8) and GMRES(25)."""
+    """The MOL lines through GMRES(8), and through GMRES(25) over the first
+    quarter of the span (the path is host bound, so its time follows the
+    steps, not the lanes)."""
     out = {}
-    for k in (8, 25):
+    for k, tf in ((8, TF_LINE), (25, TF_LINE / 4)):
         opts = Options(stage_solver="gmres", gmres_iters=k, **MOL_OPTS)
+        y_ref = y_tridiag if tf == TF_LINE else _line_solve(
+            m, torch.float64, dev, opts.replace(stage_solver="tridiag"),
+            tf=tf).y
         t0 = time.perf_counter()
-        sol = _line_solve(m, torch.float64, dev, opts)
+        sol = _line_solve(m, torch.float64, dev, opts, tf=tf)
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
         if not bool((sol.status == 1).all()):
             raise MolCheckFailed(f"MOL GMRES({k}): not every lane SUCCESS")
-        err = float((sol.y - y_tridiag).abs().max() / y_tridiag.abs().max())
+        err = float((sol.y - y_ref).abs().max() / y_ref.abs().max())
         if not err <= 1e-4:
             raise MolCheckFailed(f"MOL GMRES({k}): final state {err:.3e} > "
                                  "1e-4 relative from the tridiag solve's")
-        out[k] = {"s_per_solve": sec, "rel_to_tridiag": err,
+        out[k] = {"s_per_solve": sec, "tf": tf, "rel_to_tridiag": err,
                   "host_syncs": solve_radau.host_syncs,
                   "nsteps_max": int(sol.stats["nsteps"].max())}
-        print(f"[MOL GMRES({k}) M={m} f64] all lanes SUCCESS; final state "
+        print(f"[MOL GMRES({k}) M={m} f64, t in [0, {tf:g}]] all lanes "
+              f"SUCCESS; final state "
               f"{err:.3e} relative from the tridiag solve's (bound 1e-4) | "
               f"{sec:.2f} s (one solve, host clock), steps max "
               f"{out[k]['nsteps_max']}, host syncs {out[k]['host_syncs']}",
@@ -414,9 +458,10 @@ def block_phase(dev, m=1024, ncell=24):
     return {"s_per_solve": sec, "worst_vs_scipy": worst}
 
 
-def ind_phase(dev, m=1024, lane=0):
+def ind_phase(dev, m=1024, lane=0, tf=TF_LINE / 4):
     """K=2 IND directions (a bump in u0; the reaction rate) through the
-    GMRES(8) stage solvers, against a central difference on one lane."""
+    GMRES(8) stage solvers over the first quarter of the span, against a
+    central difference on one lane."""
     rhs, y0, (nu, rates) = mol_line(m, torch.float64, dev)
     d = y0.shape[1]
     xg = torch.linspace(0, 1, d + 2, dtype=torch.float64, device=dev)[1:-1]
@@ -428,7 +473,7 @@ def ind_phase(dev, m=1024, lane=0):
     opts = Options(rtol=1e-6, atol=1e-9, stage_solver="gmres", gmres_iters=8)
     nu_t = torch.tensor(nu, dtype=torch.float64, device=dev)
     t0 = time.perf_counter()
-    sol = solve_radau(rhs, 0.0, TF_LINE, y0, args=(nu_t, rates), options=opts,
+    sol = solve_radau(rhs, 0.0, tf, y0, args=(nu_t, rates), options=opts,
                       tangents=seeds, args_tangents=args_t)
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
@@ -445,7 +490,7 @@ def ind_phase(dev, m=1024, lane=0):
     y8[1] -= eps * bump[lane]
     r8[2] += eps
     r8[3] -= eps
-    fd = solve_radau(rhs, 0.0, TF_LINE, y8, args=(nu_t, r8), options=opts).y
+    fd = solve_radau(rhs, 0.0, tf, y8, args=(nu_t, r8), options=opts).y
     fd_y = (fd[0] - fd[1]) / (2 * eps)
     fd_r = (fd[2] - fd[3]) / (2 * eps)
     errs = []
@@ -456,7 +501,8 @@ def ind_phase(dev, m=1024, lane=0):
             raise MolCheckFailed(f"IND {what}: sens {err:.3e} > 1e-4 "
                                  "relative from the central difference")
         errs.append(err)
-    print(f"[IND through GMRES(8) D={d} M={m} K=2 f64] all lanes SUCCESS, "
+    print(f"[IND through GMRES(8) D={d} M={m} K=2 f64, t in [0, {tf:g}]] "
+          f"all lanes SUCCESS, "
           f"sens finite; lane {lane} vs central difference (eps {eps:g}): "
           f"y0 seed {errs[0]:.3e}, rate seed {errs[1]:.3e} relative (bound "
           f"1e-4) | {sec:.2f} s (one solve, host clock), host syncs "
@@ -464,30 +510,243 @@ def ind_phase(dev, m=1024, lane=0):
     return {"s_per_solve": sec, "rel_err": errs}
 
 
-PHASES = ("tridiag", "mol", "gmres", "heat", "block", "ind")
+def line_gradient(m, dtype, dev, opts, wrap=None, backward=True):
+    """bench.py's MOL-adjoint loss sum(x y(T)^2) on the m-lane line and its
+    gradient: (loss, dL/dy0 [m, D], dL/drates [m, 1])."""
+    rhs, y0, (nu, rates) = mol_line(m, dtype, dev)
+    y0.requires_grad_()
+    rates.requires_grad_()
+    d = y0.shape[1]
+    xg = torch.linspace(0, 1, d + 2, dtype=dtype, device=dev)[1:-1]
+    y_end = radau_adjoint(rhs if wrap is None else wrap(rhs), (0.0, TF_LINE),
+                          y0, args=(nu, rates), options=opts)
+    loss = torch.sum(xg * y_end ** 2)
+    if not backward:
+        return loss, None, None
+    loss.backward()
+    return loss.detach(), y0.grad, rates.grad
+
+
+def _check_line_gradient(dev, opts, g_y0, g_rates):
+    """The 1,024-lane f64 gradient against central differences, IND and the
+    CPU; returns the three worst relative errors."""
+    m, dtype = g_y0.shape[0], torch.float64
+    rhs, y0, (nu, rates) = mol_line(m, dtype, dev)
+    d = y0.shape[1]
+    xg = torch.linspace(0, 1, d + 2, dtype=dtype, device=dev)[1:-1]
+    lanes = [0, m // 2, m - 1]
+    # central differences in each lane's own rate: 6 lanes, rtol 1e-8
+    eps = 1e-4
+    r6 = rates[lanes].repeat(2, 1)
+    r6[:3] += eps
+    r6[3:] -= eps
+    tight = opts.replace(rtol=1e-8, atol=1e-11)
+    y6 = solve_radau(rhs, 0.0, TF_LINE, y0[lanes].repeat(2, 1),
+                     args=(nu, r6), options=tight).y
+    l6 = torch.sum(xg * y6 ** 2, dim=-1)
+    fd = (l6[:3] - l6[3:]) / (2 * eps)
+    err_fd = float(((g_rates[lanes, 0] - fd).abs() / fd.abs()).max())
+    if not err_fd <= 2e-3:
+        raise MolCheckFailed(f"MOL adjoint: d/drate of lanes {lanes} "
+                             f"{g_rates[lanes, 0].tolist()} vs central "
+                             f"difference {fd.tolist()}: {err_fd:.3e} > 2e-3")
+    # <dL/dy0, v> against the IND directional derivative, at rtol 1e-8 too
+    # (IND's tangent iteration stops at the Newton tolerance, sqrt(rtol): at
+    # the gradient's own rtol 1e-4 IND is the less accurate side)
+    v = torch.as_tensor(np.random.default_rng(14).standard_normal((1, m, d)),
+                        device=dev)
+    sol = solve_radau(rhs, 0.0, TF_LINE, y0, args=(nu, rates), options=tight,
+                      tangents=v)
+    ind = float(torch.sum(2 * xg * sol.y * sol.sens[0]))
+    got = float(torch.sum(g_y0 * v[0]))
+    err_ind = abs(got - ind) / abs(ind)
+    if not err_ind <= 2e-3:
+        raise MolCheckFailed(f"MOL adjoint: <dL/dy0, v> {got:.9g} vs IND "
+                             f"{ind:.9g}: {err_ind:.3e} > 2e-3")
+    # 4 lanes on the card against the same call on the CPU
+    on_card = line_gradient(4, dtype, dev, opts)
+    on_cpu = line_gradient(4, dtype, torch.device("cpu"), opts)
+    err_cpu = max(float((a.cpu() - b).abs().max() / b.abs().max())
+                  for a, b in zip(on_card[1:], on_cpu[1:]))
+    if not err_cpu <= 1e-8:
+        raise MolCheckFailed(f"MOL adjoint: 4-lane gradient on the card "
+                             f"{err_cpu:.3e} > 1e-8 relative from the CPU's")
+    return err_fd, err_ind, err_cpu
+
+
+def adjoint_phase(dev, m, dtype, reps=3, checks=False, profile=True):
+    """The MOL-adjoint cell at M lanes: checks, times and, with ``profile``,
+    one gradient under torch.profiler (launches, busy share, labels)."""
+    opts = Options(stage_solver="tridiag", adjoint_steps=ADJ_STEPS,
+                   **MOL_OPTS)
+    name = f"MOL adjoint M={m} {str(dtype)[6:]}"
+    rhs, y0, (nu, rates) = mol_line(m, dtype, dev)
+    d = y0.shape[1]
+    mesh_bytes = m * ADJ_STEPS * (2 + (opts.min_stages + 1) * d) \
+        * y0.element_size()
+    free, total = torch.cuda.mem_get_info(dev)
+    if free < 1.5 * mesh_bytes:
+        raise MolCheckFailed(
+            f"{name}: the mesh takes {mesh_bytes / 1e9:.2f} GB and the card "
+            f"has {free / 1e9:.2f} of {total / 1e9:.2f} GB free")
+
+    def forward():
+        with torch.no_grad():
+            return solve_radau(rhs, 0.0, TF_LINE, y0, args=(nu, rates),
+                               options=opts, _mesh_size=ADJ_STEPS)
+
+    _reset_kernel_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _, g_y0, g_rates = line_gradient(m, dtype, dev, opts)  # also the warm-up
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    syncs = (solve_radau.host_syncs, radau_adjoint.host_syncs)
+    if any(_kernel_launches().values()):
+        raise MolCheckFailed(f"{name}: the matrix-free gradient launched a "
+                             f"kernel: {_kernel_launches()}")
+    if not bool(torch.isfinite(g_y0).all() and torch.isfinite(g_rates).all()):
+        raise MolCheckFailed(f"{name}: non-finite gradient")
+    sol = forward()
+    nacc = int(sol.stats["naccept"].max())
+    if not bool((sol.status == 1).all()) or nacc > ADJ_STEPS:
+        raise MolCheckFailed(f"{name}: forward not SUCCESS on every lane, or "
+                             f"max(naccept) {nacc} > {ADJ_STEPS}")
+    del sol
+    errs = _check_line_gradient(dev, opts, g_y0, g_rates) if checks else None
+    ms = statistics.median(
+        events_ms(lambda: line_gradient(m, dtype, dev, opts), 1)
+        for _ in range(reps))
+    ms_fwd = statistics.median(events_ms(forward, 1) for _ in range(reps))
+    prof = profile_solve(
+        lambda wrap: line_gradient(m, dtype, dev, opts, wrap)) if profile \
+        else {"launches": None, "busy_ms": float("nan"),
+              "profiled_wall_ms": float("nan"), "labels": {}}
+    rec = {"ms_per_gradient": ms, "ms_forward": ms_fwd,
+           "host_syncs_forward": syncs[0], "host_syncs_backward": syncs[1],
+           "naccept_max": nacc, "adjoint_steps": ADJ_STEPS,
+           "mesh_bytes": mesh_bytes, "peak_allocated_bytes": peak,
+           "busy_share": prof["busy_ms"] / ms, "checks": errs, **prof}
+    profiled = "not profiled" if not profile else (
+        f"launches {prof['launches']}, device busy {prof['busy_ms']:.2f} ms "
+        f"= {rec['busy_share']:.3f} of the gradient | "
+        + "; ".join(f"{k}: {v['calls']} calls, device {v['device_ms']:.2f} "
+                    f"ms, host {v['host_ms']:.1f} ms"
+                    for k, v in sorted(prof["labels"].items()))
+        + f" (of {prof['profiled_wall_ms']:.1f} ms under the profiler)")
+    print(f"[{name}] gradients finite | {ms:.2f} ms per gradient, forward "
+          f"alone (with the mesh) {ms_fwd:.2f} ms (medians of {reps}, CUDA "
+          f"events) | host syncs {syncs[0]} forward + {syncs[1]} backward | "
+          f"max(naccept) {nacc} of {ADJ_STEPS}, mesh {mesh_bytes / 1e6:.1f} "
+          f"MB, peak allocated {peak / 1e6:.1f} MB | {profiled} | "
+          "hand-written kernels launched: 0"
+          + ("" if errs is None else
+             f" | d/drate of lanes 0, M/2, M-1 vs central difference at rtol "
+             f"1e-8: {errs[0]:.3e} (bound 2e-3); <dL/dy0, v> vs IND at rtol "
+             f"1e-8: {errs[1]:.3e} (bound 2e-3); 4 lanes vs the CPU: "
+             f"{errs[2]:.3e} (bound 1e-8)"), flush=True)
+    return rec
+
+
+def vdp_adjoint_phase(dev, m=65_536, reps=3):
+    """The adjoint whose forward solve runs through K1/K2: Radau5 on stiff
+    Van der Pol lanes, gradient of sum(y(T)^2) in y0 and mu."""
+    dtype = torch.float64
+    opts = Options(rtol=1e-6, atol=1e-9, pivoting=False, kernel_lu=True,
+                   adjoint_steps=64)
+
+    def gradient(n=m, mu0=1e3):
+        y0 = torch.tensor([[2.0, 0.0]], dtype=dtype, device=dev).repeat(n, 1)
+        mus = torch.full((n,), mu0, dtype=dtype, device=dev)
+        y0.requires_grad_()
+        mus.requires_grad_()
+        y_end = radau_adjoint(vdp_rhs, (0.0, 1.0), y0, args=mus,
+                              options=opts, jac=vdp_jac)
+        torch.sum(y_end ** 2).backward()
+        return y0.grad, mus.grad
+
+    _reset_kernel_launches()
+    g_y0, g_mu = gradient()
+    torch.cuda.synchronize()
+    launches = _kernel_launches()
+    syncs = (solve_radau.host_syncs, radau_adjoint.host_syncs)
+    if launches["K1"] <= 0 or launches["K2"] <= 0:
+        raise MolCheckFailed(f"VdP adjoint: the forward solve did not go "
+                             f"through K1/K2: {launches}")
+    if not bool(torch.isfinite(g_y0).all() and torch.isfinite(g_mu).all()):
+        raise MolCheckFailed("VdP adjoint: non-finite gradient (mesh "
+                             "overflow or a singular backward factor)")
+    # every lane is the same problem: lanes 0, M/2, M-1 against one central
+    # difference in mu (plain LU, rtol 1e-9)
+    eps = 1e-2
+    y2 = torch.tensor([[2.0, 0.0]], dtype=dtype, device=dev).repeat(2, 1)
+    mu2 = torch.tensor([1e3 + eps, 1e3 - eps], dtype=dtype, device=dev)
+    yt = solve_radau(vdp_rhs, 0.0, 1.0, y2, args=mu2, jac=vdp_jac,
+                     options=Options(rtol=1e-9, atol=1e-12)).y
+    fd = float((yt[0] ** 2).sum() - (yt[1] ** 2).sum()) / (2 * eps)
+    lanes = [0, m // 2, m - 1]
+    err = float(((g_mu[lanes] - fd).abs() / abs(fd)).max())
+    if not err <= 2e-3:
+        raise MolCheckFailed(f"VdP adjoint: d/dmu {g_mu[lanes].tolist()} vs "
+                             f"central difference {fd:.9g}: {err:.3e} > 2e-3")
+    ms = statistics.median(events_ms(gradient, 1) for _ in range(reps))
+    print(f"[VdP adjoint through K1/K2 M={m} f64, Radau5 rtol 1e-6] gradients "
+          f"finite | forward launches K1 {launches['K1']}, K2 "
+          f"{launches['K2']} (K3 {launches['K3']}, K4 {launches['K4']}) | "
+          f"{ms:.2f} ms per gradient (median of {reps}, CUDA events), host "
+          f"syncs {syncs[0]} forward + {syncs[1]} backward | d/dmu of lanes "
+          f"0, M/2, M-1 vs central difference at rtol 1e-9: {err:.3e} (bound "
+          f"2e-3)", flush=True)
+    return {"ms_per_gradient": ms, "launches": launches, "rel_err_fd": err,
+            "host_syncs_forward": syncs[0], "host_syncs_backward": syncs[1]}
+
+
+PHASES = ("tridiag", "mol", "gmres", "heat", "block", "ind", "adjoint",
+          "vdp_adjoint")
 
 
 def run(dev, only=PHASES):
-    """Run the named phases in order; returns their records."""
-    report = {}
+    """Run the named phases in order; returns their records, with the
+    seconds each phase took under ``"seconds"``."""
+    report, seconds = {}, {}
+
+    def timed(phase, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(dev, *a, **kw)
+        torch.cuda.synchronize()
+        seconds[phase] = seconds.get(phase, 0.0) + time.perf_counter() - t0
+        return out
+
+    f32, f64 = torch.float32, torch.float64
     if "tridiag" in only:
-        report["tridiag"] = tridiag_phase(dev)
+        report["tridiag"] = timed("tridiag", tridiag_phase)
     y_tridiag = None
     if "mol" in only or "gmres" in only:
-        rec, sol = mol_phase(dev, 1024, torch.float64)
+        report["mol_1024_f64"], sol = timed("mol", mol_phase, 1024, f64)
         y_tridiag = sol.y
-        report["mol_1024_f64"] = rec
     if "mol" in only:
-        report["mol_1024_f32"] = mol_phase(dev, 1024, torch.float32)[0]
-        report["mol_65536_f64"] = mol_phase(dev, 65_536, torch.float64)[0]
+        report["mol_1024_f32"] = timed("mol", mol_phase, 1024, f32)[0]
+        report["mol_65536_f64"] = timed("mol", mol_phase, 65_536, f64)[0]
     if "gmres" in only:
-        report["gmres"] = gmres_phase(dev, y_tridiag)
+        report["gmres"] = timed("gmres", gmres_phase, y_tridiag)
     if "heat" in only:
-        report["heat"] = heat_phase(dev)
+        report["heat"] = timed("heat", heat_phase)
     if "block" in only:
-        report["block"] = block_phase(dev)
+        report["block"] = timed("block", block_phase)
     if "ind" in only:
-        report["ind"] = ind_phase(dev)
+        report["ind"] = timed("ind", ind_phase)
+    if "adjoint" in only:
+        report["adjoint_1024_f64"] = timed("adjoint", adjoint_phase, 1024,
+                                           f64, checks=True)
+        report["adjoint_1024_f32"] = timed("adjoint", adjoint_phase, 1024,
+                                           f32, reps=1, profile=False)
+        report["adjoint_65536_f64"] = timed("adjoint", adjoint_phase, 65_536,
+                                            f64)
+    if "vdp_adjoint" in only:
+        report["vdp_adjoint"] = timed("vdp_adjoint", vdp_adjoint_phase)
+    report["seconds"] = seconds
+    print("[phase seconds] " + ", ".join(f"{k} {v:.1f}"
+                                         for k, v in seconds.items()),
+          flush=True)
     return report
 
 

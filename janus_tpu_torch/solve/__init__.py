@@ -1,6 +1,7 @@
 """Lockstep masked adaptive steppers (the ported subset: fixed-stage radau,
-with the dense stage LU or the matrix-free GMRES / tridiagonal stage solvers
-and mass matrices, and the fused one-kernel Radau5 step)."""
+with the dense stage LU or the matrix-free GMRES / tridiagonal stage solvers,
+mass matrices, dense output, t_eval and quadratures; its continuous adjoint;
+and the fused one-kernel Radau5 step)."""
 
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from janus_tpu_torch.solve.common import (
     EVENT_TERMINATED,
     PARAMS_EXHAUSTED,
 )
+from janus_tpu_torch.solve.adjoint import radau_adjoint
 from janus_tpu_torch.solve.options import Options
 from janus_tpu_torch.solve.radau import solve_radau
 from janus_tpu_torch.solve.radau_fused import solve_radau_fused
@@ -25,8 +27,9 @@ _RADAU_STAGES = {"radau": None, "radau5": 3, "radau9": 5, "radau13": 7}
 
 # method -> feature support matrix, the ported rows of the reference's.
 # solve_ivp RAISES on an unsupported feature instead of dropping it. Of the
-# 'radau' row jac= and mass= work; events= and t_eval= are the reference's
-# and raise NotImplementedError in solve_radau until they are ported.
+# 'radau' row jac=, mass= and t_eval= work (as do dense= and quad=); events=
+# is the reference's and raises NotImplementedError in solve_radau until it
+# is ported.
 FEATURES = {
     #                jac    mass   events t_eval
     "radau":        (True,  True,  True,  True),
@@ -64,7 +67,10 @@ def solve_ivp(f: Callable, tspan, y0, method: str = "dopri5", args: Any = None,
     'radau5'/'radau9'/'radau13' (s = 3/5/7), fixed stage count, with
     mass= ([D, D] or [M, D, D], singular allowed) and, by
     Options(stage_solver='gmres'|'tridiag', precond='tridiag'|'lines'|
-    'block'), matrix-free stage solves for method-of-lines systems; and
+    'block'), matrix-free stage solves for method-of-lines systems, and
+    with t_eval= (Solution.ys, and sens_ys with tangents=), dense=N
+    (Solution.interpolate) and quad= (Solution.quad, and sens_quad with
+    tangents=); and
     'radau_fused' (Radau5 with the whole step attempt in one CUDA kernel;
     on the card f must be in models.problems.DEVICE_PROBLEMS). Every other
     method raises NotImplementedError until its slice is ported (ROADMAP.md).
@@ -131,9 +137,46 @@ def solve_ivp(f: Callable, tspan, y0, method: str = "dopri5", args: Any = None,
                        device=device)
 
 
+# method -> the Queue 1 item of ROADMAP.md that brings its adjoint
+_ADJOINT_ITEMS = {"radaup": 17, "rodas": 13, "seulex": 16, "bdf": 15,
+                  "dopri5": 14, "dopri853": 14}
+
+
+def solve_adjoint(f: Callable, tspan, y0, method: str = "radau",
+                  args: Any = None, options: Optional[Options] = None,
+                  t_eval=None, **kw):
+    """Reverse-differentiable batched solve, the ``solve_ivp`` counterpart
+    for training and optimization loops. Returns y(T) [M, D] (or ys
+    [M, T, D] with ``t_eval=``); ``backward()`` of any function of the
+    result flows through the family's adjoint to y0, the floating-point
+    tensor leaves of args, t0, tf and the sample times.
+
+    method: 'radau' (and 'radau5'/'radau9'/'radau13'; the continuous
+    adjoint, which also takes cost=, n_alg=, checkpoints=, mass=, jac=: see
+    ``radau_adjoint``). The reference's other families ('radaup', 'rodas',
+    'seulex', 'bdf', 'dopri5', 'dopri853') raise NotImplementedError until
+    their adjoints are ported (ROADMAP.md Queue 1)."""
+    method = method.lower()
+    if method in _RADAU_STAGES:
+        stages = _RADAU_STAGES[method]
+        if stages is not None:
+            options = (options if options is not None else Options()).replace(
+                min_stages=stages, max_stages=stages)
+        return radau_adjoint(f, tspan, y0, args=args, options=options,
+                             t_eval=t_eval, **kw)
+    if method in _ADJOINT_ITEMS:
+        raise NotImplementedError(
+            f"solve_adjoint: the adjoint of method {method!r} is not ported "
+            f"to janus_tpu_torch yet (ROADMAP.md Queue 1, item "
+            f"{_ADJOINT_ITEMS[method]}); ported: 'radau'")
+    raise ValueError(
+        f"solve_adjoint: no reverse mode for method {method!r}; available: "
+        "radau (continuous). Forward sensitivities: solve_ivp(tangents=)")
+
+
 __all__ = [
     "solve_ivp", "solve_radau", "solve_radau_fused", "Solution", "Options",
-    "FEATURES",
+    "FEATURES", "radau_adjoint", "solve_adjoint",
     "RUNNING", "SUCCESS", "MAX_STEPS", "STEP_UNDERFLOW", "NEWTON_STALL",
     "EVENT_TERMINATED", "PARAMS_EXHAUSTED",
 ]

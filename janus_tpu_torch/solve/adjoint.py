@@ -1,0 +1,638 @@
+"""Continuous-adjoint reverse-mode sensitivities on the adaptive Radau solver.
+
+The port of ``janus_tpu/solve/adjoint.py``. ``radau_adjoint`` returns the
+final state of a batched adaptive Radau solve through a
+``torch.autograd.Function`` whose backward pass solves the adjoint ODE
+
+    λ' = −J(t, y(t))ᵀ λ,        λ(T) = ∂L/∂y(T)
+
+backward along the SAME accepted-step mesh the forward solve chose, with the
+primal state rebuilt from each step's stored collocation (dense-output)
+polynomial: the interpolated-primal continuous adjoint. Parameter gradients
+accumulate by the step's own Radau quadrature
+
+    ∂L/∂θ += h·Σ_i b_i · λ(τ_i)ᵀ ∂f/∂θ(τ_i, ŷ(τ_i)),
+
+so a gradient with respect to many parameters costs ONE backward sweep
+instead of K forward tangent directions. ``loss.backward()`` fills ``.grad``
+of y0, of every floating-point tensor leaf of ``args``, and of t0/tf when
+they are tensors that require grad.
+
+How the sweep is built:
+- the backward pass is a Python loop over the step index k = max(naccept)−1
+  … 0 (one host read before the loop) with a per-lane live mask: lanes own
+  different mesh lengths, the same lockstep philosophy as the forward loop;
+- each backward step factors (γ/h_b·Mᵀ + Jᵀ) once (the plain batched LU; no
+  hand-written kernel, as the reference's sweep runs no Pallas kernel) and
+  runs the SAME transformed simplified iteration as the forward Newton: the
+  adjoint stage system is linear in λ, so it converges at the primal's
+  contraction rate. The iteration stops when no live lane moves more than
+  the Newton tolerance, a flag over all lanes (one host sync per trip, at
+  most 10 trips per step);
+- ∂f/∂θᵀλ and Jᵀλ come from ONE ``torch.func.vjp`` pull of the batched rhs
+  per stage, used by the iteration and by the quadrature; Jacobians are
+  never materialized for the quadrature, and a leaf that f broadcasts gets a
+  cotangent of its own shape;
+- invertible mass matrices use the substitution ν = M⁻ᵀλ: Mᵀν' = −Jᵀν with
+  ν(T) = M⁻ᵀ∂L/∂y(T) and ∂L/∂y0 = Mᵀν(t0);
+- ``Options(stage_solver='gmres'|'tridiag')`` carries through to the
+  backward pass: the adjoint stage systems are solved by the forward path's
+  batched GMRES machinery (``radau._gmres_core`` / ``_gmres_block_core``)
+  with Jᵀ·v as a vjp pull and the TRANSPOSED probed structure as
+  preconditioner, so large-D (method-of-lines) models get reverse-mode
+  gradients without any Jacobian. A non-singular mass stays matrix-free too
+  (GMRES preconditioned by the mass's own tridiagonal part), and with
+  ``n_alg`` only the small [n_alg × n_alg] g_z block is materialized;
+- semi-explicit index-1 DAEs (``n_alg`` trailing algebraic variables,
+  mass = blockdiag(A, 0) with A invertible) get the Cao-Li-Petzold adjoint:
+  the backward stage systems already handle a singular M, and only the
+  TERMINAL data is DAE-specific. With J = [[f_x, f_z], [g_x, g_z]]:
+  ν_x(T) = A⁻ᵀ(ȳ_x − g_xᵀg_z⁻ᵀȳ_z), ν_z(T) = −g_z⁻ᵀf_zᵀν_x(T), and the
+  terminal velocity in dL/dT is (ẋ, −g_z⁻¹(g_t + g_x ẋ)). ∂L/∂y0 = Mᵀν(t0)
+  is zero on algebraic slots (z0 is fixed by consistency, not a free input);
+- ``checkpoints=C`` bounds the memory: the span is chained over C segments
+  whose Function keeps only the segment's inputs and runs the segment again,
+  with its mesh, in the backward pass. A repeated solve reproduces the first
+  to the bit on the same device (the mesh is written by unique index).
+
+Terminal events (``events=``) and a variable-order forward ladder are the
+reference's and raise ``NotImplementedError`` here until they are ported.
+
+Accuracy contract: gradients match jvp/FD through the solve to O(rtol)
+(discretize-then-optimize and optimize-then-discretize differ by the local
+error of the mesh, which the controller bounds by rtol).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
+from torch.func import jvp, vjp
+
+from janus_tpu_torch.control.precond import (blocks_of_jacobian,
+                                             line_tridiag_bands,
+                                             tridiag_bands)
+from janus_tpu_torch.linalg.gmres import gmres_dense_solve
+from janus_tpu_torch.linalg.smalllu import lu_factor, lu_solve
+from janus_tpu_torch.solve import common as cm
+from janus_tpu_torch.solve.options import Options
+from janus_tpu_torch.solve.radau import (_factorize, _gmres_block_core,
+                                         _gmres_core, _gmres_mass_blocks,
+                                         _gmres_mass_ops, _HostSyncs,
+                                         default_jacobian, solve_radau)
+from janus_tpu_torch.solve.radau_tables import radau_tableau
+
+
+def radau_adjoint(f: Callable, tspan, y0, args=None,
+                  options: Optional[Options] = None,
+                  jac: Optional[Callable] = None, mass=None, t_eval=None,
+                  events=None, n_alg: int = 0, cost: Optional[Callable] = None,
+                  checkpoints: int = 0, device=None):
+    """Reverse-differentiable batched adaptive Radau solve.
+
+    Returns the final state y(T) [M, D], or with ``t_eval`` the sampled
+    trajectory ys [M, T, D]. ``backward()`` of any function of the result
+    flows through the continuous adjoint to y0, every floating-point tensor
+    leaf of ``args`` (Python numbers and integer tensors pass through), t0
+    and tf, and in t_eval mode the sample times, where those are tensors
+    that require grad. A y0 that is not a tensor goes to ``device``, by
+    default the CUDA card; a tensor keeps its device.
+
+    t_eval: optional strictly monotonic 1-D grid of sample times inside
+    (t0, tf], ordered in the direction of integration. The solve is CHAINED
+    over the segments t0 → t_eval[0] → … → t_eval[-1] (each segment an
+    adaptive solve warm-started with the previous segment's step proposal),
+    so samples are exact solve endpoints and the reverse sweep injects each
+    sample's cotangent at exactly its time. tspan's tf only fixes the
+    direction; integration stops at t_eval[-1]. Memory: one accepted-step
+    mesh of ``options.adjoint_steps`` slots PER SEGMENT.
+
+    mass: optional mass matrix [D, D] or [M, D, D]; invertible unless
+    ``n_alg > 0``. Works with ``stage_solver='gmres'``.
+
+    n_alg: number of TRAILING algebraic variables of a semi-explicit index-1
+    DAE: mass = blockdiag(A, 0) with A [D−n_alg square] invertible, the last
+    n_alg rows of f the constraints g(t, x, z) = 0, y0 consistent. The y0
+    cotangent lives on the differential slots only.
+
+    cost: optional running-cost integrand ``l(t [M], y [M, D], args) -> [M]``
+    (or ``[M, Q]``). Appends ``q = ∫ l dt`` to the outputs, ``(y, q)`` or
+    ``(ys, q)``, and q's cotangent flows through the SAME backward sweep:
+    λ' = −Jᵀλ − l_yᵀq̄, parameters q̄·∫ l_θ dt, the boundaries ±q̄·l.
+
+    checkpoints: optional segment count C > 0 for memory-bounded reverse
+    mode over a long span (terminal mode only). The span is chained over C
+    uniform segments; the forward pass stores only the segment boundaries
+    and each segment's mesh is recomputed during the backward sweep. Size
+    ``options.adjoint_steps`` for the per-SEGMENT step budget.
+
+    The host syncs of the last backward sweep are in
+    ``radau_adjoint.host_syncs`` (the forward's in
+    ``solve_radau.host_syncs``).
+    """
+    opts = options if options is not None else Options()
+    if opts.min_stages != opts.max_stages:
+        raise NotImplementedError(
+            "radau_adjoint over the variable-order ladder (min_stages != "
+            "max_stages) is not ported to janus_tpu_torch yet; it comes "
+            "with radaup (ROADMAP.md Queue 1, item 17)")
+    if events is not None:
+        raise NotImplementedError(
+            "radau_adjoint(events=...) is not ported to janus_tpu_torch "
+            "yet; it comes with solve/events.py, the rest of the radau "
+            "features (ROADMAP.md Queue 1, item 10)")
+    if n_alg and mass is None:
+        raise ValueError("n_alg > 0 (index-1 DAE adjoint) needs the "
+                         "singular mass = blockdiag(A, 0)")
+    if checkpoints and t_eval is not None:
+        raise ValueError("checkpoints= is terminal-mode only; t_eval already "
+                         "chains segments (size adjoint_steps per segment)")
+    if opts.stage_solver != "lu" and jac is not None:
+        raise ValueError("stage_solver='gmres' is matrix-free; drop jac=")
+    t0, tf = tspan
+    y0 = cm.on_device(y0, device)
+    if mass is not None:
+        mass = cm.like(mass, y0)
+    use_cost = cost is not None
+    run = _build_adjoint(f, opts, jac_user=jac, mass=mass, n_alg=n_alg,
+                         cost=cost, remat=bool(checkpoints))
+    if t_eval is None and not checkpoints:
+        y, _, _, *q = run(t0, tf, y0, args, None)
+        return (y, q[0]) if use_cost else y
+
+    if _ndim(t0) != 0 or _ndim(tf) != 0:
+        raise ValueError(
+            f"radau_adjoint({'t_eval' if t_eval is not None else 'checkpoints'}"
+            "=...) chains segments over a shared grid; t0/tf must be "
+            "scalars")
+    t0b, _, y0b = cm.broadcast_batch(t0, tf, y0)
+    if t_eval is not None:
+        t_eval = cm.like(t_eval, y0b)
+        if t_eval.ndim != 1 or t_eval.shape[0] < 1:
+            raise ValueError("t_eval must be a non-empty 1-D grid")
+        edges = [t0] + list(t_eval.unbind(0))
+    else:
+        # uniform segment boundaries; the rematerialized Function stores only
+        # each segment's inputs, and its mesh is recomputed going backward
+        ta, tb = cm.like(t0, y0b), cm.like(tf, y0b)
+        edges = list((ta + (tb - ta) * torch.linspace(
+            0.0, 1.0, int(checkpoints) + 1, dtype=y0b.dtype,
+            device=y0b.device)).unbind(0))
+    y, h, q_sum, ys = y0b, None, None, []
+    for ta, tb in zip(edges[:-1], edges[1:]):
+        y, _, h, *q = run(ta, tb, y, args, h)
+        ys.append(y)
+        if use_cost:
+            q_sum = q[0] if q_sum is None else q_sum + q[0]
+    out = torch.stack(ys, dim=1) if t_eval is not None else y   # [M, T, D]
+    return (out, q_sum) if use_cost else out
+
+
+radau_adjoint.host_syncs = 0
+
+
+def _ndim(x):
+    return x.ndim if isinstance(x, torch.Tensor) else np.ndim(x)
+
+
+def _split_diff(args):
+    """Partition the leaves of ``args`` into differentiable (floating-point
+    tensors) and passthrough (Python numbers, integer tensors, anything
+    else): (dleaves, rebuild, leaves, diff_idx) with rebuild(dleaves) the
+    args tree with those leaves replaced."""
+    leaves, unflatten = cm.tree_flatten(args)
+    diff_idx = [i for i, leaf in enumerate(leaves)
+                if isinstance(leaf, torch.Tensor) and leaf.is_floating_point()]
+
+    def rebuild(diff_leaves):
+        out = list(leaves)
+        for i, v in zip(diff_idx, diff_leaves):
+            out[i] = v
+        return unflatten(out)
+
+    return [leaves[i] for i in diff_idx], rebuild, leaves, diff_idx
+
+
+def constrained_ydot(fa, t, y, dl, mass, n_alg, *, use_gmres=False,
+                     gmres_iters=20, pivot=True):
+    """The true state velocity ẏ at (t, y) for the boundary-time cotangent
+    formulas t̄₀ = −λ₀·ẏ(t₀), t̄_f = ȳ·ẏ(T); fa(t, y, dl) is the rhs.
+
+    ODE: ẏ = f. Invertible mass: ẏ = M⁻¹f. Semi-explicit index-1 DAE
+    (``n_alg`` trailing algebraic rows, mass = blockdiag(A, 0)): the
+    CONSTRAINED velocity ẋ = A⁻¹f_x, ż = −g_z⁻¹(g_t + g_x·ẋ), the
+    Cao–Li–Petzold boundary velocity. Matrix-free throughout: g_z from n_alg
+    z-slot jvp probes (only the small [n_alg × n_alg] block is factored),
+    g_x·ẋ and g_t as jvp's, the A block by dense LU (or batched GMRES under
+    ``use_gmres`` for large differential blocks). ``pivot`` is the dense
+    factorizations' partial pivoting (the reference fixes it to True, the
+    default; callers thread ``Options.pivoting`` through here)."""
+    m, dim = y.shape
+    f_t = fa(t, y, dl)
+    if mass is None and not n_alg:
+        return f_t
+    mb = cm.like(mass, y).expand(m, dim, dim)
+
+    def dense_solve(mat, rhs):
+        if use_gmres:
+            return gmres_dense_solve(mat, rhs, gmres_iters)
+        return lu_solve(*lu_factor(mat, pivot=pivot), rhs)
+
+    if not n_alg:
+        return dense_solve(mb, f_t)
+    n1 = dim - n_alg
+
+    def f_at(yy):
+        return fa(t, yy, dl)
+
+    gz = torch.stack([jvp(f_at, (y,), (_unit(y, n1 + a),))[1][:, n1:]
+                      for a in range(n_alg)], dim=-1)
+    xdot = dense_solve(mb[:, :n1, :n1], f_t[:, :n1])
+    g_t = jvp(lambda tt: fa(tt, y, dl), (t,), (torch.ones_like(t),))[1][:, n1:]
+    gx_xdot = jvp(f_at, (y,), (F.pad(xdot, (0, n_alg)),))[1][:, n1:]
+    zdot = -lu_solve(*lu_factor(gz, pivot=pivot), g_t + gx_xdot)
+    return torch.cat([xdot, zdot], dim=-1)
+
+
+def _unit(y, j):
+    e = torch.zeros_like(y)
+    e[:, j] = 1.0
+    return e
+
+
+class _RadauAdjointFn(torch.autograd.Function):
+    """One adaptive Radau solve (a whole span or one chained segment) with
+    the continuous adjoint as its backward. Inputs: the static setup ``cfg``
+    (f, options, jac, mass, n_alg, cost, the args tree's rebuild, remat),
+    then t0, tf, y0, h0 and the differentiable leaves of args. Outputs
+    (y, t, h_next[, q]); h_next is not differentiable."""
+
+    @staticmethod
+    def forward(ctx, cfg, t0, tf, y0, h0, *dleaves):
+        cap = cfg["opts"].adjoint_steps
+        sol = _forward_solve(cfg, t0, tf, y0, h0, dleaves,
+                             0 if cfg["remat"] else cap)
+        ctx.cfg = cfg
+        ctx.y0_shape = y0.shape
+        ctx.n_leaves = len(dleaves)
+        ctx.t_in = tuple(x if not isinstance(x, torch.Tensor) else None
+                         for x in (t0, tf))
+        tensors = [x for x in (t0, tf) if isinstance(x, torch.Tensor)]
+        ctx.has_h0 = h0 is not None
+        if ctx.has_h0:
+            tensors.append(h0)
+        tensors += [y0, *dleaves, sol.y, sol.t]
+        if not cfg["remat"]:
+            tensors += [sol.stats["naccept"], sol.mesh["t"], sol.mesh["h"],
+                        sol.mesh["y"], sol.mesh["q"]]
+        ctx.save_for_backward(*tensors)
+        ctx.set_materialize_grads(False)
+        ctx.mark_non_differentiable(sol.h_next)
+        outs = (sol.y, sol.t, sol.h_next)
+        return outs + (sol.quad,) if cfg["cost"] is not None else outs
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ybar, tbar, _hbar, qbar=None):
+        cfg = ctx.cfg
+        saved = list(ctx.saved_tensors)
+        t0, tf = (saved.pop(0) if x is None else x for x in ctx.t_in)
+        h0 = saved.pop(0) if ctx.has_h0 else None
+        y0 = saved.pop(0)
+        dleaves = [saved.pop(0) for _ in range(ctx.n_leaves)]
+        y_end, t_term = saved.pop(0), saved.pop(0)
+        if cfg["remat"]:
+            # the segment again, this time with its mesh (to the bit the
+            # forward pass's solve: same inputs, same warm start)
+            sol = _forward_solve(cfg, t0, tf, y0, h0, dleaves,
+                                 cfg["opts"].adjoint_steps)
+            nacc, mesh = sol.stats["naccept"], sol.mesh
+        else:
+            nacc = saved.pop(0)
+            mesh = dict(zip(("t", "h", "y", "q"), saved))
+        del saved
+        t0b, tfb, y0b = cm.broadcast_batch(t0, tf, y0)
+        lam0, gleaves, t0bar, tfbar = _adjoint_sweep(
+            cfg["f"], cfg["opts"], cfg["jac"], cfg["mass"], mesh, nacc, t0b,
+            tfb, t_term, y0b, cfg["rebuild"], dleaves, y_end, ybar, tbar,
+            cfg["n_alg"], cost=cfg["cost"], qbar=qbar)
+        # cotangents in the shapes of the primal inputs; a scalar t0/tf gets
+        # the sum over the lanes, and what is no tensor gets None
+        t_cts = [None if not isinstance(x, torch.Tensor)
+                 else bar.sum().reshape(x.shape) if x.numel() == 1 else bar
+                 for x, bar in zip((t0, tf), (t0bar, tfbar))]
+        return (None, *t_cts, lam0.reshape(ctx.y0_shape), None, *gleaves)
+
+
+def _forward_solve(cfg, t0, tf, y0, h0, dleaves, mesh_size):
+    with torch.no_grad():
+        return solve_radau(cfg["f"], t0, tf, y0, args=cfg["rebuild"](dleaves),
+                           options=cfg["opts"], jac=cfg["jac"],
+                           mass=cfg["mass"], quad=cfg["cost"],
+                           _mesh_size=mesh_size, _h0=h0)
+
+
+def _build_adjoint(f, opts, jac_user, mass, n_alg=0, cost=None, remat=False):
+    """run(t0, tf, y0, args, h0) -> (y, t, h_next[, q]) through
+    ``_RadauAdjointFn``. remat: keep only the inputs in the forward pass and
+    solve again, with the mesh, in the backward pass (``checkpoints=``)."""
+
+    def run(t0, tf, y0, args, h0):
+        dleaves, rebuild, _, _ = _split_diff(args)
+        cfg = {"f": f, "opts": opts, "jac": jac_user, "mass": mass,
+               "n_alg": n_alg, "cost": cost, "rebuild": rebuild,
+               "remat": remat}
+        return _RadauAdjointFn.apply(cfg, t0, tf, y0, h0, *dleaves)
+
+    return run
+
+
+def _transposed_bands(dl, d, du):
+    """[M, 3, D] bands of −Jᵀ from J's: (Jᵀ)_dl[i] = J_du[i−1],
+    (Jᵀ)_du[i] = J_dl[i+1]. Line-boundary zeros map to line-boundary zeros,
+    so 'lines' rides the same shift."""
+    return -torch.stack([F.pad(du[:, :-1], (1, 0)), d,
+                         F.pad(dl[:, 1:], (0, 1))], dim=1)
+
+
+def _adjoint_sweep(f, opts, jac_user, mass, mesh, nacc, t0b, tfb, t_term,
+                   y0b, rebuild, dleaves, y_end, ybar, tbar, n_alg=0,
+                   cost=None, qbar=None):
+    """The backward loop over the stored accepted-step mesh. Returns
+    (λ(t0) [M, D], the leaves' gradients, t̄0 [M], t̄f [M]). The mesh dict
+    is emptied once it has been read, so that a caller that holds no other
+    reference frees the rings before the gradients are assembled."""
+    use_cost = cost is not None
+    m, dim = y_end.shape
+    dtype, dev = y_end.dtype, y_end.device
+    s = opts.min_stages
+    tab = radau_tableau(s)
+    cap = mesh["t"].shape[1]
+    npair = (s - 1) // 2
+    c_nodes, b_w, t_mat, ti_mat = (
+        torch.as_tensor(a, dtype=dtype, device=dev)
+        for a in (tab.c, tab.b, tab.t_mat, tab.ti_mat))
+    tol = (opts.newton_tol if opts.newton_tol > 0
+           else cm.derived_newton_tol(dtype, opts.rtol))
+    use_gmres = opts.stage_solver != "lu"
+    g_iters = 0 if opts.stage_solver == "tridiag" else opts.gmres_iters
+    syncs = _HostSyncs()
+
+    def f2(t, y, dl):
+        return f(t, y, rebuild(dl))
+
+    if ybar is None:
+        ybar = torch.zeros_like(y_end)
+    if use_cost:
+        def lfun(t, y, dl):                            # canon [M, Q]
+            return cm.canon_cost(cost(t, y, rebuild(dl)))
+
+        l_term = lfun(t_term, y_end, dleaves)
+        qb = torch.zeros_like(l_term) if qbar is None \
+            else qbar.reshape(l_term.shape)            # [M, Q]
+
+    if not use_gmres:
+        jac_fn = (lambda t, y, dl: jac_user(t, y, rebuild(dl))) if jac_user \
+            else default_jacobian(f2)
+
+    def dense_solve(mat, rhs):
+        """mat⁻¹·rhs for an explicit batched matrix (mass, DAE blocks)."""
+        if use_gmres:
+            return gmres_dense_solve(mat, rhs, opts.gmres_iters)
+        return lu_solve(*lu_factor(mat, pivot=True), rhs)
+
+    mass_t = None if mass is None else mass.mT
+
+    def mdot_t(w):                                     # [M, D] or [M, s, D]
+        if mass_t is None:
+            return w
+        if mass_t.ndim == 2:
+            return torch.einsum("ij,...j->...i", mass_t, w)
+        return torch.einsum("mij,msj->msi" if w.ndim == 3 else "mij,mj->mi",
+                            mass_t, w)
+
+    # terminal velocity ẏ(t_term) = M⁻¹ f(t_term, y_term)
+    if n_alg:
+        # semi-explicit index-1: J = [[f_x, f_z], [g_x, g_z]] at (T, y(T));
+        # ẋ = A⁻¹f_x-rows, ż = −g_z⁻¹(g_t + g_x ẋ). Only the small
+        # [n_alg × n_alg] g_z block is ever dense-factored; every large
+        # operator is a closure (explicit blocks on the LU path, jvp/vjp
+        # pulls + GMRES block solves on the matrix-free path).
+        n1 = dim - n_alg
+        a_blk = mass.expand(m, dim, dim)[:, :n1, :n1]
+
+        def f_at(yy):
+            return f2(t_term, yy, dleaves)
+
+        f_term = f_at(y_end)
+        if use_gmres:
+            # g_z columns by n_alg z-slot jvp probes of the matrix-free J
+            gz = torch.stack(
+                [jvp(f_at, (y_end,), (_unit(y_end, n1 + a),))[1][:, n1:]
+                 for a in range(n_alg)], dim=-1)
+            pull_j = vjp(f_at, y_end)[1]
+
+            def gx_t_dot(u):
+                return pull_j(F.pad(u, (n1, 0)))[0][:, :n1]
+
+            def fz_t_dot(v):
+                return pull_j(F.pad(v, (0, n_alg)))[0][:, n1:]
+
+            def gx_dot(w):
+                return jvp(f_at, (y_end,), (F.pad(w, (0, n_alg)),))[1][:, n1:]
+        else:
+            jmat_term = jac_fn(t_term, y_end, dleaves)
+            fz = jmat_term[:, :n1, n1:]
+            gx = jmat_term[:, n1:, :n1]
+            gz = jmat_term[:, n1:, n1:]
+
+            def gx_t_dot(u):
+                return torch.einsum("mai,ma->mi", gx, u)
+
+            def fz_t_dot(v):
+                return torch.einsum("mia,mi->ma", fz, v)
+
+            def gx_dot(w):
+                return torch.einsum("mai,mi->ma", gx, w)
+        lu_gz = lu_factor(gz, pivot=True)
+        lu_gz_t = lu_factor(gz.mT, pivot=True)
+        xdot = dense_solve(a_blk, f_term[:, :n1])
+        g_t = jvp(lambda tt: f2(tt, y_end, dleaves), (t_term,),
+                  (torch.ones_like(t_term),))[1][:, n1:]
+        zdot = -lu_solve(*lu_gz, g_t + gx_dot(xdot))
+        ydot_term = torch.cat([xdot, zdot], dim=-1)
+    else:
+        ydot_term = constrained_ydot(f2, t_term, y_end, dleaves, mass, 0,
+                                     use_gmres=use_gmres,
+                                     gmres_iters=opts.gmres_iters)
+
+    # tf cotangent: dL/dT = λ(T)ᵀ ẏ(T) (+ the t output's cotangent + the
+    # quadrature endpoint's q̄·l(T): dq/dT = l(T, y(T)))
+    tfbar = torch.sum(ybar * ydot_term, dim=-1)
+    if tbar is not None:
+        tfbar = tfbar + tbar.to(dtype).broadcast_to((m,))
+    if use_cost:
+        tfbar = tfbar + torch.sum(qb * l_term, dim=-1)
+
+    # ν(t_term) = M⁻ᵀ λ(t_term)
+    if n_alg:
+        # consistent adjoint-DAE terminal data (module docstring):
+        # ν_x = A⁻ᵀ(ȳ_x − g_xᵀg_z⁻ᵀȳ_z), g_zᵀν_z = −f_zᵀν_x
+        u = lu_solve(*lu_gz_t, ybar[:, n1:])
+        nu_x = dense_solve(a_blk.mT, ybar[:, :n1] - gx_t_dot(u))
+        rhs_z = fz_t_dot(nu_x)
+        if use_cost:
+            # integral cost on a DAE: the adjoint's algebraic consistency
+            # 0 = f_zᵀν_x + g_zᵀν_z + l_zᵀq̄ carries the cost's algebraic
+            # gradient into ν_z(T) (Cao-Li-Petzold quadrature sensitivities)
+            lbar = vjp(lambda yy: lfun(t_term, yy, dleaves), y_end)[1](qb)[0]
+            rhs_z = rhs_z + lbar[:, n1:]
+        nu_z = -lu_solve(*lu_gz_t, rhs_z)
+        lam = torch.cat([nu_x, nu_z], dim=-1)
+    elif mass is not None:
+        lam = dense_solve(mass_t.expand(m, dim, dim), ybar)
+    else:
+        lam = ybar
+
+    grads = [torch.zeros_like(leaf) for leaf in dleaves]
+    bad = nacc > cap                                  # mesh overflow
+    theta = 1.0 - c_nodes                             # [s]
+    powers = torch.stack([theta ** (q + 1) for q in range(s)], dim=-1)
+
+    # lanes own nacc of the mesh's slots; the slots past every lane's mesh
+    # are dead, so the loop starts at the longest mesh (one host read)
+    syncs.count += 1
+    for k in range(min(int(nacc.max()), cap) - 1, -1, -1):
+        live = k < nacc                               # [M]
+        tn, hn = mesh["t"][:, k], mesh["h"][:, k]     # step start, signed h
+        yn, qq = mesh["y"][:, k], mesh["q"][:, k]     # [M, D], [M, s, D]
+        # primal interpolant at the backward stage nodes
+        # τ_i = t_end + c_i·h_b ⇒ θ_i = 1 − c_i on the step polynomial
+        t_end = tn + hn
+        hb = torch.where(live, -hn, -1.0)             # signed backward step
+        ys = yn[:, None, :] + torch.einsum("sq,mqd->msd", powers, qq)
+        y_hi = yn + torch.sum(qq, dim=1)              # poly(1)
+        taus = t_end[:, None] + c_nodes[None, :] * hb[:, None]
+
+        # dead lanes: substitute safe (finite) evaluation points
+        ys = torch.where(live[:, None, None], ys, y_end[:, None, :])
+        taus = torch.where(live[:, None], taus, t_term[:, None])
+        y_hi = torch.where(live[:, None], y_hi, y_end)
+        t_hi = torch.where(live, t_end, t_term)
+
+        # one (y, θ) pull per stage, for the iteration and the quadrature
+        pulls, srcs, pulls_l = [], [], []
+        for i in range(s):
+            ti, yi = taus[:, i], ys[:, i]
+            pulls.append(vjp(lambda yy, dl, _t=ti: f2(_t, yy, dl), yi,
+                             dleaves)[1])
+            if use_cost:
+                # running-cost source: λ' picks up −l_yᵀq̄ (constant across
+                # the linear iteration), parameters q̄·∫ l_θ dt
+                pulls_l.append(vjp(lambda yy, dl, _t=ti: lfun(_t, yy, dl),
+                                   yi, dleaves)[1])
+                srcs.append(pulls_l[i](qb)[0])        # [M, D]
+
+        # frozen iteration matrix: (γ/h_b·Mᵀ + Jᵀ) from J at the step's
+        # later end (where the backward step starts)
+        if use_gmres:
+            # matrix-free: Jᵀ·v by a vjp pull at the frozen point; the
+            # preconditioner of −Jᵀ by transposing the probed structure
+            # (bands shifted, blocks transposed per block)
+            def f_hi(yy, _t=t_hi):
+                return f2(_t, yy, dleaves)
+
+            pull_lin = vjp(f_hi, y_hi)[1]
+
+            def jv_adj(v, _pull=pull_lin):
+                return -_pull(v)[0]
+
+            if opts.precond == "block":
+                pb = opts.precond_block
+                blocks_adj = -blocks_of_jacobian(f_hi, y_hi, pb).mT
+                mdotv_t, mblk_t = _gmres_mass_blocks(mass_t, m, dim // pb, pb,
+                                                     dtype, dev)
+                solve_real, solve_cplx = _gmres_block_core(
+                    tab, jv_adj, blocks_adj, hb, mdotv_t, mblk_t, g_iters)
+            else:
+                bands = line_tridiag_bands(f_hi, y_hi, opts.precond_block) \
+                    if opts.precond == "lines" else tridiag_bands(f_hi, y_hi)
+                bands_adj = _transposed_bands(*bands)
+                solve_real, solve_cplx = _gmres_core(
+                    tab, jv_adj, bands_adj, hb,
+                    _gmres_mass_ops(mass_t, m, dim, bands_adj[:, 1]), g_iters)
+            ok = torch.ones((m,), dtype=torch.bool, device=dev)
+        else:
+            jac_adj = -jac_fn(t_hi, y_hi, dleaves).mT
+            lu_r, piv_r, lu_c, piv_c, ok = _factorize(
+                tab, hb, jac_adj, mass_t, opts.pivoting)
+
+            def solve_real(b, _lu=lu_r, _piv=piv_r):
+                return lu_solve(_lu, _piv, b)
+
+            def solve_cplx(p, b, _lu=lu_c, _piv=piv_c):
+                return lu_solve(_lu[:, p], _piv[:, p], b)
+
+        # transformed simplified iteration on the LINEAR adjoint stage system
+        def g_stage(i, z_i):
+            base = -pulls[i](lam + z_i)[0]
+            return base - srcs[i] if use_cost else base
+
+        w = lam.new_zeros((m, s, dim))
+        z = lam.new_zeros((m, s, dim))
+        scale = 1.0 + torch.abs(lam)[:, None, :]
+        for _ in range(10):
+            gs = torch.stack([g_stage(i, z[:, i]) for i in range(s)], dim=1)
+            tif = torch.einsum("ij,mjd->mid", ti_mat, gs)
+            mw = mdot_t(w)
+            rhs_r = tif[:, 0] - (float(tab.mu_real) / hb)[:, None] * mw[:, 0]
+            dws = [solve_real(rhs_r)]
+            for p in range(npair):
+                mu = tab.mu_complex[p]
+                mur, mui = float(mu.real), float(mu.imag)
+                w1, w2 = mw[:, 1 + 2 * p], mw[:, 2 + 2 * p]
+                fr = tif[:, 1 + 2 * p] - (mur * w1 - mui * w2) / hb[:, None]
+                fi = tif[:, 2 + 2 * p] - (mur * w2 + mui * w1) / hb[:, None]
+                sol = solve_cplx(p, torch.cat([fr, fi], dim=-1))
+                dws.append(sol[:, :dim])
+                dws.append(sol[:, dim:])
+            dw = torch.stack(dws, dim=1)
+            w = w + dw
+            z = torch.einsum("ij,mjd->mid", t_mat, w)
+            dn = cm.safe_sqrt(torch.mean(torch.square(dw / scale),
+                                         dim=(1, 2)))
+            if not syncs.any(live & ok & (dn > tol) & torch.isfinite(dn)):
+                break
+
+        # quadrature: ∂L/∂θ += h Σ_i b_i · (∂f/∂θ)ᵀ ν(τ_i) (+ q̄·l_θ)
+        for i in range(s):
+            wgt = torch.where(live, hn * b_w[i], 0.0)[:, None]   # [M, 1]
+            contrib = pulls[i](wgt * (lam + z[:, i, :]))[1]
+            grads = [ga + gc for ga, gc in zip(grads, contrib)]
+            if use_cost:
+                contrib_l = pulls_l[i](wgt * qb)[1]
+                grads = [ga + gc for ga, gc in zip(grads, contrib_l)]
+
+        # c_s = 1 ⇒ τ_s = t_n
+        lam = torch.where(live[:, None], lam + z[:, -1, :], lam)
+        bad = bad | (live & ~ok)
+    mesh.clear()                 # the rings are read: let go of them here
+
+    # y0 cotangent: λ(t0) = Mᵀ ν(t0)
+    lam0 = mdot_t(lam)
+    # t0 cotangent: dL/dt0 = −ν(t0)ᵀ f(t0, y0) − q̄·l(t0, y0)
+    t0bar = -torch.sum(lam * f2(t0b, y0b, dleaves), dim=-1)
+    if use_cost:
+        t0bar = t0bar - torch.sum(qb * lfun(t0b, y0b, dleaves), dim=-1)
+
+    # poison everything if any lane overflowed the mesh or hit a singular
+    # backward factorization: a silent wrong gradient is worse than NaN
+    any_bad = bad.any()
+    lam0, t0bar, tfbar, *grads = (torch.where(any_bad, torch.nan, g)
+                                  for g in (lam0, t0bar, tfbar, *grads))
+    radau_adjoint.host_syncs = syncs.count
+    return lam0, grads, t0bar, tfbar

@@ -619,15 +619,10 @@ def _gmres_stage_solver(tab, f, t_lin, y_lin, args, pdata, h, mass, iters,
 
 
 _LATER = {
-    "t_eval": "the rest of the radau features (dense output)",
     "events": "the rest of the radau features (events)",
-    "dense": "the rest of the radau features (dense output)",
-    "quad": "the rest of the radau features (quadratures)",
     "step_args": "the rest of the radau features (step_args)",
     "record_steps": "the rest of the radau features (step recording)",
     "qr_fallback": "the rest of the radau features (QR fallback)",
-    "_mesh_size": "the continuous adjoint",
-    "_h0": "the continuous adjoint",
 }
 
 
@@ -660,6 +655,23 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
     matrix-free (module docstring); f must then be traceable by
     ``torch.func.jvp`` and jac= is refused.
 
+    t_eval: optional shared output grid [T]; ``Solution.ys`` [M, T, D] holds
+    the collocation interpolant at every grid point a lane stepped over (NaN
+    elsewhere), and with tangents ``Solution.sens_ys`` [K, M, T, D] its
+    tangent. quad: optional running-cost integrand
+    ``l(t [M], y [M, D], args) -> [M]`` or ``[M, Q]``; ``Solution.quad``
+    accumulates ∫ l dt at the step's own Radau quadrature (nodes c, weights
+    b), and with tangents ``Solution.sens_quad`` [K, M(, Q)] carries
+    dq_k = ∫ l_y·yd_k + l_θ·dθ_k dt. The quadrature never feeds back into
+    step control or the state; for reverse-mode gradients of integral costs
+    use ``radau_adjoint(cost=...)``. dense: step-mesh capacity N > 0 stores
+    every accepted step's collocation polynomial so that
+    ``Solution.interpolate(ts)`` evaluates the solution anywhere afterwards;
+    size N ≥ the worst lane's accepted-step count (overflowing lanes
+    interpolate to NaN). ``_mesh_size`` and ``_h0`` (a signed per-lane first
+    step, 0 = automatic) are the adjoint's seats for the same mesh and for
+    chained segments.
+
     The host syncs of the last solve are in ``solve_radau.host_syncs``.
     """
     opts = options if options is not None else Options()
@@ -676,15 +688,16 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
     if use_gmres and jac is not None:
         raise ValueError("stage_solver='gmres' is matrix-free (J·v by jvp, "
                          "3-probe tridiagonal preconditioner); drop jac=")
-    for name, val in (("t_eval", t_eval), ("events", events), ("quad", quad),
-                      ("step_args", step_args), ("_h0", _h0)):
+    for name, val in (("events", events), ("step_args", step_args)):
         if val is not None:
             _not_ported(name)
-    for name, flag in (("dense", dense), ("_mesh_size", _mesh_size),
-                       ("record_steps", opts.record_steps),
+    for name, flag in (("record_steps", opts.record_steps),
                        ("qr_fallback", opts.qr_fallback)):
         if flag:
             _not_ported(name)
+    # dense= is the public face of the adjoint's step-mesh rings: store every
+    # accepted step's collocation polynomial for Solution.interpolate()
+    mesh_size = max(int(_mesh_size), int(dense))
 
     s = opts.min_stages
     tab = radau_tableau(s)
@@ -736,7 +749,7 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
 
     f0 = f(t0, y0, args)
     direction = torch.where(tf >= t0, 1.0, -1.0).to(dtype)
-    if opts.h0 != 0.0:
+    if opts.h0 != 0.0 and _h0 is None:
         h_st = torch.full((m,), opts.h0, dtype=dtype, device=dev) * direction
     elif mass is None:
         h_st = cm.initial_step(f, t0, y0, f0, tf, s, opts.rtol, opts.atol,
@@ -746,6 +759,54 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
         # algebraic rows of a singular-mass system: start small and let the
         # controller grow
         h_st = torch.clamp(torch.abs(tf - t0) * 1e-2, max=1e-3) * direction
+    if _h0 is not None:
+        # signed per-lane warm start (segment chaining in solve.adjoint);
+        # lanes with _h0 == 0 keep the automatic step, and the in-loop
+        # boundary clamp bounds the rest by |tf - t|
+        h_mag = torch.abs(cm.like(_h0, y0).broadcast_to((m,)))
+        h_st = torch.where(h_mag > 0, h_mag * direction, h_st)
+
+    use_dense = t_eval is not None
+    if use_dense:
+        t_eval = cm.like(t_eval, y0)
+        at_t0 = t_eval[None, :] == t0[:, None]
+        out_ys = torch.where(at_t0[..., None], y0[:, None, :], torch.nan)
+        if use_sens:
+            out_sd = torch.where(at_t0[None, :, :, None], yd[:, :, None, :],
+                                 torch.nan)
+
+    use_quad = quad is not None
+    use_quad_sens = use_quad and use_sens
+    if use_quad:
+        b_vec = torch.as_tensor(tab.b, dtype=dtype, device=dev)
+        qshape = tuple(quad(t0, y0, args).shape)
+        if qshape != (m,) and (len(qshape) != 2 or qshape[0] != m):
+            raise ValueError(f"quad must return [M] or [M, Q] with M={m}, "
+                             f"got {qshape}")
+        quad_scalar = len(qshape) == 1
+
+        def qla(tt, yy, aa):                  # args-open variant (jvp seat)
+            return cm.canon_cost(quad(tt, yy, aa))
+
+        q_acc = y0.new_zeros((m, 1 if quad_scalar else qshape[1]))
+        if use_quad_sens:
+            qd_acc = y0.new_zeros((yd.shape[0],) + tuple(q_acc.shape))
+            # stage tangent values off the dense tangent polynomial:
+            # yd(θ=c_i) = yd + Σ_q c_i^{q+1}·Qd_q (exact at the nodes)
+            cpow = torch.stack([c_nodes ** (q + 1) for q in range(s)])
+            args_rows = [None] * yd.shape[0] if args_d is None else \
+                [cm.tree_map(lambda a, _k=k: a[_k], args_d)
+                 for k in range(yd.shape[0])]
+
+    mesh = None
+    if mesh_size:
+        # accepted-step rings for the continuous-adjoint backward pass
+        # (solve.adjoint) and Solution.interpolate: step start t, signed h,
+        # start state, and the dense-output polynomial of every accepted step
+        mesh = {"t": y0.new_zeros((m, mesh_size)),
+                "h": y0.new_zeros((m, mesh_size)),
+                "y": y0.new_zeros((m, mesh_size, dim)),
+                "q": y0.new_zeros((m, mesh_size, s, dim))}
 
     stats = cm.zero_stats(m, ("nfev", "njev", "nlu", "nsteps", "naccept",
                               "nreject", "nnewton"), dev)
@@ -926,11 +987,66 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
             zd = _tangent_stages(tab, f, t, y, h, z, yd, newton_tol,
                                  solve_real, solve_cplx, accept, args, syncs,
                                  args_d=args_d, mass=mass)
+            yd_old = yd
             yd = torch.where(accept[None, :, None], yd + zd[:, :, -1, :], yd)
+            # tangent of the collocation interpolant: the same θ-polynomial
+            # in Zd
+            qd = torch.einsum("kmsd,sq->kmqd", zd, p_mat)
 
-        # ---- warm-start polynomial ----------------------------------------
+        # ---- dense output & warm-start polynomial -------------------------
         q_new = torch.einsum("msd,sq->mqd", z, p_mat)  # [M, θ-power q, D]
         q_poly = torch.where(accept[:, None, None], q_new, q_poly)
+
+        if use_dense:
+            inside, tpow = cm.dense_window(t_eval, t, h, accept, s)
+            out_ys = torch.where(
+                inside[..., None],
+                y[:, None, :] + torch.einsum("mtq,mqd->mtd", tpow, q_new),
+                out_ys)
+            if use_sens:
+                out_sd = torch.where(
+                    inside[None, :, :, None],
+                    yd_old[:, :, None, :]
+                    + torch.einsum("mtq,kmqd->kmtd", tpow, qd), out_sd)
+
+        # ---- running-cost quadrature --------------------------------------
+        if use_quad:
+            # the step's own Radau quadrature on the converged stage values:
+            # q += h·Σ_i b_i·l(t + c_i·h, y + Z_i)
+            t_st = [t + c_nodes[i] * h for i in range(s)]
+            y_st = [y + z[:, i, :] for i in range(s)]
+            vals = torch.stack([qla(t_st[i], y_st[i], args)
+                                for i in range(s)], dim=1)      # [M, s, Q]
+            inc = h[:, None] * torch.einsum("s,msq->mq", b_vec, vals)
+            q_acc = q_acc + torch.where(accept[:, None], inc, 0.0)
+            if use_quad_sens:
+                yd_st = yd_old[:, :, None, :] + torch.einsum(
+                    "kmqd,qs->kmsd", qd, cpow)                  # [K, M, s, D]
+
+                def ldot(i, k):
+                    # tangent of the integrand: l_y·yd (+ l_θ·dθ_k)
+                    if args_rows[k] is None:
+                        return jvp(lambda yy: qla(t_st[i], yy, args),
+                                   (y_st[i],), (yd_st[k, :, i, :],))[1]
+                    return jvp(lambda yy, aa: qla(t_st[i], yy, aa),
+                               (y_st[i], args),
+                               (yd_st[k, :, i, :], args_rows[k]))[1]
+
+                ld = torch.stack([torch.stack([ldot(i, k) for i in range(s)],
+                                              dim=1)
+                                  for k in range(yd.shape[0])])  # [K,M,s,Q]
+                inc_d = h[None, :, None] * torch.einsum("s,kmsq->kmq", b_vec,
+                                                        ld)
+                qd_acc = qd_acc + torch.where(accept[None, :, None], inc_d,
+                                              0.0)
+
+        if mesh is not None:
+            # record the accepted step into slot naccept: each slot is
+            # written once, by index (no host sync); steps past the capacity
+            # are dropped, and naccept > capacity is what the adjoint pass
+            # and interpolate() detect
+            cm.ring_write(mesh, stats["naccept"], accept,
+                          {"t": t, "h": h, "y": y, "q": q_new})
 
         # ---- state update -------------------------------------------------
         h_next_abs = torch.where(
@@ -993,8 +1109,18 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
         have_sol = have_sol | accept
 
     solve_radau.host_syncs = syncs.count
-    return cm.Solution(t=t, y=y, status=status, stats=stats,
-                       sens=yd if use_sens else None, h_next=h_st)
+    def scalar_q(q):
+        return q[..., 0] if quad_scalar else q
+
+    return cm.Solution(
+        t=t, y=y, status=status, stats=stats,
+        ts=t_eval if use_dense else None,
+        ys=out_ys if use_dense else None,
+        sens=yd if use_sens else None, mesh=mesh,
+        sens_ys=out_sd if (use_sens and use_dense) else None,
+        h_next=h_st,
+        quad=scalar_q(q_acc) if use_quad else None,
+        sens_quad=scalar_q(qd_acc) if use_quad_sens else None)
 
 
 solve_radau.host_syncs = 0

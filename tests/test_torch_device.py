@@ -7,8 +7,8 @@ ValueError instead of running on the CPU. The card is hidden here by
 monkeypatching ``torch.cuda.is_available``, so the tests behave the same on
 a machine that has one. A solve of a numpy y0 with ``device="cpu"`` equals
 the solve of the same y0 as a CPU tensor exactly. The matrix-free stage
-solvers and ``mass=`` follow the same rule, and a mass on another device
-than y0 is refused. No module of the package imports jax or the JAX package
+solvers, ``mass=`` and the adjoint entry points follow the same rule, and a
+mass on another device than y0 is refused. No module of the package imports jax or the JAX package
 (a walk over its sources).
 """
 
@@ -22,8 +22,8 @@ import torch
 from janus_tpu_torch.interop import tree_to_torch
 from janus_tpu_torch.models.problems import vdp_rhs
 from janus_tpu_torch.solve import common as cm
-from janus_tpu_torch.solve import (Options, solve_ivp, solve_radau,
-                                   solve_radau_fused)
+from janus_tpu_torch.solve import (Options, radau_adjoint, solve_adjoint,
+                                   solve_ivp, solve_radau, solve_radau_fused)
 
 torch.set_num_threads(1)
 
@@ -100,6 +100,26 @@ def test_matrix_free_and_mass_obey_the_device_rule(case, no_card):
                     method="radau5", **kw)
     assert bool((ref.status == 1).all())
     _equal(got, ref)
+
+
+@pytest.mark.parametrize("entry", ["radau_adjoint", "solve_adjoint"])
+def test_adjoint_obeys_the_device_rule(entry, no_card):
+    adj = {"radau_adjoint": radau_adjoint, "solve_adjoint": solve_adjoint}[
+        entry]
+    kw = dict(args=torch.tensor(3.0, dtype=torch.float64, requires_grad=True),
+              options=Options(rtol=1e-6, atol=1e-9, adjoint_steps=64))
+    with pytest.raises(ValueError, match="pass y0 as a CPU tensor"):
+        adj(_decay, (0.0, 1.0), Y0, **kw)
+    got = adj(_decay, (0.0, 1.0), Y0, device="cpu", **kw)
+    ref = adj(_decay, (0.0, 1.0), torch.from_numpy(Y0), **kw)
+    assert got.device.type == "cpu" and got.requires_grad
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    got.sum().backward()
+    assert kw["args"].grad.device.type == "cpu"
+    assert bool(torch.isfinite(kw["args"].grad))
+    with pytest.raises(ValueError, match="the device is taken from y0"):
+        adj(_decay, (0.0, 1.0), torch.from_numpy(Y0), mass=torch.eye(
+            2, dtype=torch.float64, device="meta"), **kw)
 
 
 def test_mass_on_another_device_is_refused(no_card):

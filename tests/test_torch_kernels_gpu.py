@@ -32,6 +32,13 @@ line with stage_solver='tridiag' on the card against the same solve on the
 CPU for 8 lanes (status and step counts equal, y to rtol 1e-6 / atol 1e-9:
 the card runs ``CUDA_TRIDIAG`` where the CPU runs Thomas, and they agree to
 ~1e-12 per solve).
+
+The continuous adjoint on the card against the CPU, gradients to 1e-8
+relative to their largest entry: the D=128 line's gradient (4 lanes,
+'tridiag'), and a Van der Pol gradient whose forward solve goes through
+K1/K2 (``kernel_lu=True``; K1 and K2 must have been launched), with the
+interpolant of a ``dense=`` solve to 1e-9 and its mesh to 1e-7 (step sizes
+amplify the two devices' rounding, as they do between the two packages).
 """
 
 import numpy as np
@@ -44,7 +51,8 @@ from janus_tpu_torch.linalg import gmres as gm
 from janus_tpu_torch.models.problems import robertson_rhs, vdp_rhs
 from janus_tpu_torch.ops import radau_fused as k4
 from janus_tpu_torch.ops import smalllu
-from janus_tpu_torch.solve import Options, solve_ivp
+from janus_tpu_torch.models.problems import vdp_jac
+from janus_tpu_torch.solve import Options, radau_adjoint, solve_ivp
 from janus_tpu_torch.solve import radau_fused as rf
 
 def _card():
@@ -239,3 +247,48 @@ def test_mol_solve_on_card_matches_cpu(solver):
     for k in ("naccept", "nreject", "nnewton"):
         assert torch.equal(got.stats[k].cpu(), ref.stats[k]), k
     torch.testing.assert_close(got.y.cpu(), ref.y, rtol=1e-6, atol=1e-9)
+
+
+@pytest.mark.gpu
+def test_mol_gradient_on_card_matches_cpu():
+    dev = _card()
+    opts = Options(stage_solver="tridiag", adjoint_steps=mol.ADJ_STEPS,
+                   **mol.MOL_OPTS)
+    got = mol.line_gradient(4, torch.float64, dev, opts)
+    ref = mol.line_gradient(4, torch.float64, torch.device("cpu"), opts)
+    for a, b in zip(got, ref):
+        assert a.is_cuda and bool(torch.isfinite(a).all())
+        assert float((a.cpu() - b).abs().max() / b.abs().max()) <= 1e-8
+
+
+@pytest.mark.gpu
+def test_vdp_gradient_through_kernels_on_card_matches_cpu():
+    dev = _card()
+    opts = Options(rtol=1e-6, atol=1e-9, pivoting=False, kernel_lu=True,
+                   adjoint_steps=128)
+    rng = np.random.default_rng(17)
+    y0_np = np.tile([[2.0, 0.0]], (64, 1)) + 0.1 * rng.standard_normal((64, 2))
+    mu_np = np.geomspace(2.0, 1e3, 64)
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        y0 = torch.from_numpy(y0_np).to(where).requires_grad_()
+        mu = torch.from_numpy(mu_np).to(where).requires_grad_()
+        smalllu.reset_launch_counts()
+        y = radau_adjoint(vdp_rhs, (0.0, 1.0), y0, args=mu, options=opts,
+                          jac=vdp_jac)
+        (y ** 2).sum().backward()
+        if where.type == "cuda":
+            assert smalllu.lu_factor_t.launches > 0
+            assert smalllu.lu_solve_t.launches > 0
+        sol = solve_ivp(vdp_rhs, (0.0, 1.0), y0.detach(), method="radau5",
+                        args=mu.detach(), jac=vdp_jac, options=opts,
+                        dense=128)
+        out[where.type] = (y.detach().cpu(), y0.grad.cpu(), mu.grad.cpu(),
+                           sol.interpolate(np.linspace(0, 1, 9)).cpu(),
+                           sol.mesh["q"].cpu())
+    names = ("y", "dL/dy0", "dL/dmu", "interpolate", "mesh q")
+    errs = {n: float((a - b).abs().max() / b.abs().max())
+            for n, a, b in zip(names, out["cuda"], out["cpu"])}
+    assert all(bool(torch.isfinite(a).all()) for a in out["cuda"])
+    for n, tol in zip(names, (1e-10, 1e-8, 1e-8, 1e-9, 1e-7)):
+        assert errs[n] <= tol, errs

@@ -139,24 +139,41 @@ def test_options_from_jax_reads_every_field():
     assert options_from_jax(RefOptions()) == Options()
 
 
-UNPORTED = {
-    "t_eval": dict(t_eval=np.linspace(0.0, 1.0, 3)),
-    "events": dict(events=lambda t, y, a: y[:, 0]),
-    "dense": dict(dense=8),
-    "quad": dict(quad=lambda t, y, a: y[:, 0]),
-    "step_args": dict(step_args=torch.ones((3, 1), dtype=torch.float64)),
-    "record_steps": dict(options=Options(record_steps=4)),
-    "qr_fallback": dict(options=Options(qr_fallback=True)),
-    "_mesh_size": dict(_mesh_size=16),
-    "_h0": dict(_h0=0.1),
+# feature -> (call keywords, the field of Solution it fills, or None while it
+# is unported and raises). The ported ones are held against the reference in
+# tests/test_torch_dense_quad.py.
+FEATURES = {
+    "t_eval": (dict(t_eval=np.linspace(0.0, 1.0, 3)), "ys"),
+    "events": (dict(events=lambda t, y, a: y[:, 0]), None),
+    "dense": (dict(dense=64), "mesh"),
+    "quad": (dict(quad=lambda t, y, a: y[:, 0]), "quad"),
+    "step_args": (dict(step_args=torch.ones((3, 1), dtype=torch.float64)),
+                  None),
+    "record_steps": (dict(options=Options(record_steps=4)), None),
+    "qr_fallback": (dict(options=Options(qr_fallback=True)), None),
+    "_mesh_size": (dict(_mesh_size=64), "mesh"),
+    "_h0": (dict(_h0=0.1), "h_next"),
 }
 
 
-@pytest.mark.parametrize("feature", list(UNPORTED))
+@pytest.mark.parametrize("feature", list(FEATURES))
 def test_unported_features_raise(feature):
+    """Every feature of the reference's signature: an unported one raises
+    NotImplementedError, a ported one runs and fills its field."""
     y0 = torch.tensor([[2.0, 0.0]], dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="ported"):
-        solve_radau(vdp_rhs, 0.0, 1.0, y0, args=10.0, **UNPORTED[feature])
+    kw, field = FEATURES[feature]
+    if field is None:
+        with pytest.raises(NotImplementedError, match="ported"):
+            solve_radau(vdp_rhs, 0.0, 1.0, y0, args=10.0, **kw)
+        return
+    plain = solve_radau(vdp_rhs, 0.0, 1.0, y0, args=10.0)
+    sol = solve_radau(vdp_rhs, 0.0, 1.0, y0, args=10.0, **kw)
+    assert int(sol.status[0]) == 1 and getattr(sol, field) is not None
+    if feature == "_h0":       # another first step, the same answer to rtol
+        assert not torch.equal(sol.stats["nsteps"], plain.stats["nsteps"])
+        torch.testing.assert_close(sol.y, plain.y, rtol=1e-5, atol=1e-8)
+    else:                      # the feature changes no number of the solve
+        torch.testing.assert_close(sol.y, plain.y, rtol=0, atol=0)
 
 
 def test_guards_and_methods_raise():

@@ -86,7 +86,19 @@ Phases, one line each (everything is made from fixed seeds):
     kernel, as it runs no Pallas kernel in the reference). Then the adjoint
     whose forward solve goes through K1/K2: 65,536 Van der Pol lanes, Radau5,
     kernel_lu=True: K1 and K2 launched, gradients finite, ms per gradient,
-    d/dmu against a central difference.
+    d/dmu against a central difference;
+15. RODAS4, its discrete adjoint and events (janus_tpu_torch.bench.rodas,
+    its shortest check): bench.py's rodas-adjoint gradient -- 8,192 Van der
+    Pol lanes, mu = logspace(1.5, 3), rtol 1e-4, adjoint_steps=128, loss
+    sum(y(T)^2), gradient in y0 and mu -- in f64: finite, ms per gradient,
+    host syncs, max(naccept), against the transpose oracle (the IND tangents
+    of solve_rodas, to 1e-10), d/dmu of three lanes against central
+    differences (1e-4) and 4 lanes against the CPU (1e-7); solve_rodas on the
+    65,536 headline lanes with K=2 IND tangents and kernel_lu=True, where K1
+    factors E and K2 does every stage and tangent solve: their launch counts
+    (``launches_rodas`` in the kernels line), y and sens within 1e-5 of the
+    plain LU; a terminal event on 65,536 Radau5 lanes of heterogeneous mu:
+    event_t and event_idx of 4 lanes against the CPU.
 
 Then one JSON line with the kernels' records, nvidia-smi's line, and last
 {"ok": true, "device": {...}}. Any failed check raises; no phase's failure
@@ -133,6 +145,7 @@ def main():
     from janus_tpu_torch import ops as janus_ops
     from janus_tpu_torch.bench import kernels as bench
     from janus_tpu_torch.bench import mol
+    from janus_tpu_torch.bench import rodas as rodas_probe
     from janus_tpu_torch.models.problems import (DEVICE_PROBLEMS,
                                                  robertson_rhs, vdp_jac,
                                                  vdp_rhs)
@@ -585,6 +598,12 @@ def main():
     report = mol.run(dev)   # a failed check raises mol.MolCheckFailed
     adj_launches = report["vdp_adjoint"]["launches"]
 
+    # ---- 15. RODAS4, its discrete adjoint, events ------------------------------
+    t15 = time.perf_counter()
+    rodas_report = rodas_probe.run(dev, smoke=True)   # raises RodasCheckFailed
+    rodas_launches = rodas_report["forward"]["launches"]
+    print(f"[phase 15] {time.perf_counter() - t15:.1f} s", flush=True)
+
     k1, k1p, k2, k2p, extra = times[(torch.float64, 4)]
     (b1, by1, lib1), (b2, by2, lib2) = (extra["lu_factor_t"],
                                         extra["lu_solve_t"])
@@ -595,14 +614,16 @@ def main():
          "launches": launches["K1"], "max_abs_err": err["K1"]["float64"],
          "ms": k1, "plain_ms": k1p, "bound_ms": b1, "bound_by": by1,
          "library_ms": lib1, "shape": f"D=4 M={M} float64",
-         "launches_vdp_adjoint": adj_launches["K1"]},
+         "launches_vdp_adjoint": adj_launches["K1"],
+         "launches_rodas": rodas_launches["K1"]},
         {"name": "lu_solve_t", "route": "cuda",
          "source": "janus_tpu_torch/csrc/smalllu.cu",
          "replaces": "janus_tpu/ops/smalllu_pallas.py:115",
          "launches": launches["K2"], "max_abs_err": err["K2"]["float64"],
          "ms": k2, "plain_ms": k2p, "bound_ms": b2, "bound_by": by2,
          "library_ms": lib2, "shape": f"D=4 M={M} float64",
-         "launches_vdp_adjoint": adj_launches["K2"]},
+         "launches_vdp_adjoint": adj_launches["K2"],
+         "launches_rodas": rodas_launches["K2"]},
         {"name": "linsolve_fused", "route": "cuda",
          "source": "janus_tpu_torch/csrc/smalllu.cu",
          "replaces": "janus_tpu/ops/smalllu_pallas.py:55",

@@ -18,9 +18,12 @@ the matrix-free Radau path for method-of-lines systems
 tridiagonal, line or block preconditioners, ``linalg/gmres.py`` and
 ``control/precond.py``) with mass matrices (``mass=``), which is plain torch
 as it is plain jnp in the reference; dense output, ``t_eval=`` and
-quadratures on ``solve_radau``; and the continuous adjoint
+quadratures on ``solve_radau``; the continuous adjoint
 ``solve.radau_adjoint`` (``solve/adjoint.py``), a ``torch.autograd.Function``
-whose backward sweeps the forward solve's accepted-step mesh, plain torch too.
+whose backward sweeps the forward solve's accepted-step mesh, plain torch too;
+events (``solve/events.py``) on solve_radau, solve_rodas and radau_adjoint;
+and RODAS4 (``solve/rodas.py``, through K1/K2 under ``kernel_lu``) with its
+discrete adjoint ``solve.rodas_adjoint`` (``solve/adjoint_rodas.py``).
 
 Precision: f32 contractions must not be demoted to TF32 on the card (a
 demoted contraction stalls the f32 Newton) — the role of the reference's

@@ -7,7 +7,8 @@ call of the K4 wrapper) and a probe, run from the root of a checkout on a
 machine with a CUDA card and nvcc:
 
     python3 -m janus_tpu_torch.bench.kernels [--parent DIR] [--reps N]
-        [--skip-lu] [--k4-only] [--json PATH]
+        [--skip-lu] [--k4-only] [--radau-lu [--pairs N] [--no-launches]]
+        [--json PATH]
 
 It prints, one line each:
 - K1-K3 against the PyTorch call that computes the same function
@@ -24,7 +25,10 @@ It prints, one line each:
   through its own ``solve_ivp``, in a process of its own started there, in
   turns with this one (parent, this, this, parent);
 then one JSON line with all of it, also written to ``--json PATH`` if
-given.
+given. ``--radau-lu`` measures instead the Radau9 headline on the plain
+batched LU (``linalg.smalllu``; ``radau_lu_times``), with ``--parent`` in
+``--pairs N`` pairs of turns, the first side alternating, each turn a
+process of its own.
 
 Peaks (NVIDIA H100 SXM data sheet, 700 W): 3.35 TB/s of HBM3, 34 TFLOP/s
 f64 and 67 TFLOP/s f32 outside the tensor cores.
@@ -375,28 +379,14 @@ def k4_times(dev, reps=3):
     return report
 
 
-def k4_in_checkout(checkout: Path, reps):
-    """``k4_times`` of the package in another checkout (an earlier commit),
-    in a process of its own started there, with this file: the report."""
-    code = ("import runpy, sys; sys.path.insert(0, '.'); sys.argv = "
-            f"['kernels', '--k4-only', '--reps', '{reps}']; "
-            f"runpy.run_path({str(Path(__file__).resolve())!r}, "
-            "run_name='__main__')")
-    res = subprocess.run([sys.executable, "-c", code], cwd=checkout,
-                         capture_output=True, text=True, timeout=1500)
-    if res.returncode != 0:
-        raise RuntimeError(f"k4 probe in {checkout} failed:\n{res.stdout}"
-                           f"\n{res.stderr}")
-    return json.loads(res.stdout.strip().splitlines()[-1])
-
-
 def k4_against(dev, parent: Path, reps):
     """This checkout's K4 against the one at parent, on one card, in turns
     (parent, this, this, parent): {"this": [report, report], "parent":
     [...]}, and one line per cell with each side's mean of its runs."""
-    runs = {"parent": [k4_in_checkout(parent, reps)], "this": []}
+    runs = {"parent": [in_checkout(parent, ["--k4-only"], reps)],
+            "this": []}
     runs["this"] += [k4_times(dev, reps), k4_times(dev, reps)]
-    runs["parent"].append(k4_in_checkout(parent, reps))
+    runs["parent"].append(in_checkout(parent, ["--k4-only"], reps))
     for cell in runs["this"][0]:
         mean = {side: {key: statistics.fmean(r[cell][key] for r in rs)
                        for key in ("kernel_ms", "events_ms")}
@@ -411,6 +401,101 @@ def k4_against(dev, parent: Path, reps):
               f" | by events: this {mean['this']['events_ms']:.5f}, parent "
               f"{mean['parent']['events_ms']:.5f}", flush=True)
     return runs
+
+
+def radau_lu_times(dev, reps=3, launches=True):
+    """The Radau9 headline on the plain LU (chip_smoke's phase 4 without
+    kernel_lu: 65,536 VdP lanes, mu = 1e3, t in [0, 1], rtol 1e-6, atol
+    1e-9, pivoting=False, analytic Jacobian, K=2 IND) through the package on
+    sys.path: s per solve (CUDA events, median of reps after a warm-up), its
+    host syncs and, if launches, the launches of one more solve (kernels,
+    copies and sets under torch.profiler; None otherwise)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from janus_tpu_torch.models.problems import vdp_jac, vdp_rhs
+    from janus_tpu_torch.solve import Options
+    from janus_tpu_torch.solve.radau import solve_radau
+
+    f64 = torch.float64
+    y0 = torch.tensor([[2.0, 0.0]], dtype=f64, device=dev).repeat(M, 1)
+    mus = torch.full((M,), 1e3, dtype=f64, device=dev)
+    seeds = torch.zeros((2, M, 2), dtype=f64, device=dev)
+    seeds[0, :, 0] = 1.0
+    seeds[1, :, 1] = 1.0
+    opts = Options(rtol=1e-6, atol=1e-9, pivoting=False, min_stages=5,
+                   max_stages=5)
+
+    def solve():
+        return solve_radau(vdp_rhs, 0.0, 1.0, y0, args=mus, options=opts,
+                           jac=vdp_jac, tangents=seeds)
+
+    sol = solve()
+    torch.cuda.synchronize()
+    syncs = solve_radau.host_syncs
+    runs = [events_ms(solve, 1) / 1e3 for _ in range(reps)]
+    if launches:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            solve()
+            torch.cuda.synchronize()
+        launches = sum(1 for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+    return {"s_per_solve": statistics.median(runs), "runs": runs,
+            "launches": launches or None, "host_syncs": syncs,
+            "success": float((sol.status == 1).double().mean())}
+
+
+def in_checkout(checkout: Path, flags, reps):
+    """The ``--k4-only`` or ``--radau-lu`` report of the package in another
+    checkout (an earlier commit), in a process of its own started there,
+    with this file. flags: the probe's flags, a list."""
+    code = ("import runpy, sys; sys.path.insert(0, '.'); sys.argv = "
+            f"['kernels', *{flags!r}, '--reps', '{reps}']; "
+            f"runpy.run_path({str(Path(__file__).resolve())!r}, "
+            "run_name='__main__')")
+    res = subprocess.run([sys.executable, "-c", code], cwd=checkout,
+                         capture_output=True, text=True, timeout=1500)
+    if res.returncode != 0:
+        raise RuntimeError(f"{flags} probe in {checkout} failed:\n"
+                           f"{res.stdout}\n{res.stderr}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def radau_lu_against(parent: Path, reps, pairs):
+    """The plain-LU headline of this checkout against the one at parent:
+    pairs of turns, the first side alternating (parent, this), (this,
+    parent), ..., each turn a process of its own, the launches counted in
+    the first pair only; one line per turn as it ends: {"this": [report,
+    ...], "parent": [...], "wins": pairs this won}."""
+    here = Path(__file__).resolve().parents[2]
+    runs = {"parent": [], "this": []}
+    wins = 0
+    for i in range(pairs):
+        for side in (("parent", "this") if i % 2 == 0 else ("this", "parent")):
+            flags = ["--radau-lu"] + ([] if i == 0 else ["--no-launches"])
+            r = in_checkout(parent if side == "parent" else here, flags, reps)
+            runs[side].append(r)
+            print(f"[radau9 plain LU turn] pair {i} {side}: s per solve "
+                  f"{r['s_per_solve']:.4f} (runs {r['runs']}), launches "
+                  f"{r['launches']}", flush=True)
+        wins += runs["this"][-1]["s_per_solve"] < \
+            runs["parent"][-1]["s_per_solve"]
+    s_this, s_par = ([r["s_per_solve"] for r in runs[k]]
+                     for k in ("this", "parent"))
+    q = statistics.quantiles(s_par, n=4) if len(s_par) > 1 else [0, 0, 0]
+    print(f"[radau9 plain LU vs parent] M=65536, {pairs} pairs, s per solve "
+          f"(median of {reps} each turn, CUDA events): this "
+          + ", ".join(f"{x:.4f}" for x in s_this) + "; parent "
+          + ", ".join(f"{x:.4f}" for x in s_par)
+          + f" | medians this {statistics.median(s_this):.4f}, parent "
+          f"{statistics.median(s_par):.4f}, parent's interquartile "
+          f"{q[2] - q[0]:.4f}; this faster in {wins} of {pairs} pairs | "
+          f"launches this {runs['this'][0]['launches']}, parent "
+          f"{runs['parent'][0]['launches']} | host syncs this "
+          f"{runs['this'][0]['host_syncs']}, parent "
+          f"{runs['parent'][0]['host_syncs']}", flush=True)
+    return {**runs, "wins": wins}
 
 
 _POW_SRC = r"""
@@ -480,9 +565,16 @@ def main(argv=None):
                     help="a checkout of an earlier commit; its K4 is timed "
                          "through its own entry point, in turns with this")
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--pairs", type=int, default=2,
+                    help="--radau-lu --parent: pairs of turns")
+    ap.add_argument("--no-launches", action="store_true",
+                    help="--radau-lu: skip the profiled solve")
     ap.add_argument("--skip-lu", action="store_true")
     ap.add_argument("--k4-only", action="store_true",
                     help="only the K4 solves; the last line is their report")
+    ap.add_argument("--radau-lu", action="store_true",
+                    help="only the plain-LU Radau9 headline (in turns with "
+                         "--parent, if given); the last line is its report")
     ap.add_argument("--json", type=Path, default=None,
                     help="also write the JSON line to this file")
     a = ap.parse_args(argv)
@@ -493,21 +585,32 @@ def main(argv=None):
     if a.k4_only:
         print(json.dumps(k4_times(dev, a.reps)))
         return 0
+    if a.radau_lu and a.parent is None:
+        print(json.dumps(radau_lu_times(dev, a.reps, not a.no_launches)))
+        return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | "
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     report = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+    if a.radau_lu:
+        report["radau_lu"] = radau_lu_against(a.parent, a.reps, a.pairs)
+        return _emit(report, a.json)
     if not a.skip_lu:
         report["lu"] = lu_table(dev)
     report["pow"] = pow_agreement(dev)
     report["k4"] = (k4_against(dev, a.parent, a.reps) if a.parent
                     else k4_times(dev, a.reps))
+    return _emit(report, a.json)
+
+
+def _emit(report, path):
+    """Print the report as the last line, and write it to path if given."""
     line = json.dumps(report)
-    if a.json is not None:
-        a.json.parent.mkdir(parents=True, exist_ok=True)
-        a.json.write_text(line + "\n")
+    if path is not None:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(line + "\n")
     print(line)
     return 0
 

@@ -15,15 +15,13 @@ from __future__ import annotations
 import torch
 
 
-def _swap_rows(x, k, p):
-    """Swap row k (static) with row p (per batch, [...]) of x [..., D, N] in place."""
-    n = x.shape[-1]
-    idx = p.to(torch.int64).expand(x.shape[:-2])[..., None, None]
-    idx = idx.expand(*x.shape[:-2], 1, n)
-    row_p = torch.gather(x, -2, idx)
-    row_k = x[..., k:k + 1, :].clone()
-    x[..., k:k + 1, :] = row_p
-    x.scatter_(-2, idx, row_k)
+def _swap_rows(x, k, p, r):
+    """x [..., D, N] with row k (static) and row p >= k (per batch, [...]
+    int64) swapped: one gather, out of place (reverse mode passes through
+    it). r: arange(D) on x's device."""
+    src = torch.where(r == p[..., None], k, r)                    # [..., D]
+    src[..., k] = p
+    return torch.gather(x, -2, src[..., None].expand(x.shape))
 
 
 def lu_factor(a, pivot: bool = True):
@@ -31,28 +29,36 @@ def lu_factor(a, pivot: bool = True):
 
     a: [..., D, D] → (lu [..., D, D] packed L\\U, piv [..., D] int32 swap
     targets in LAPACK ipiv convention; with pivot=False piv is the identity).
-    A zero pivot is guarded to 1 (the lane then fails ``lu_ok``).
+    A zero pivot is guarded to 1 (the lane then fails ``lu_ok``). Out of
+    place, so that ``torch.func.vjp`` differentiates through it (the
+    discrete adjoints' step replays): each column moves the finished row
+    out and rebuilds only the rows below it.
     """
     d = a.shape[-1]
     batch = a.shape[:-2]
-    lu = a.clone()
-    pivs = []
-    for k in range(d):
+    r = torch.arange(d, device=a.device)
+    rows, pivs = [], []
+    rest = a                                  # rows k.. of the partial factor
+    for k in range(d - 1):
         if pivot:
             # first maximal |entry| wins, as in the reference's tournament
-            p = k + torch.argmax(torch.abs(lu[..., k:, k]), dim=-1)
-            _swap_rows(lu, k, p)
-            pivs.append(p.to(torch.int32))
-        else:
-            pivs.append(torch.full(batch, k, dtype=torch.int32,
-                                   device=a.device))
-        pivval = lu[..., k, k]
+            q = torch.argmax(torch.abs(rest[..., k]), dim=-1)
+            rest = _swap_rows(rest, 0, q, r[:d - k])
+            pivs.append(q + k)
+        row = rest[..., 0, :]
+        pivval = row[..., k]
         safe = torch.where(pivval == 0.0, 1.0, pivval)
-        mult = lu[..., k + 1:, k] / safe[..., None]
-        lu[..., k + 1:, k + 1:] = (lu[..., k + 1:, k + 1:]
-                                   - mult[..., :, None] * lu[..., k:k + 1, k + 1:])
-        lu[..., k + 1:, k] = mult
-    return lu, torch.stack(pivs, dim=-1)
+        mult = rest[..., 1:, k] / safe[..., None]
+        rest = torch.cat([rest[..., 1:, :k], mult[..., None],
+                          rest[..., 1:, k + 1:]
+                          - mult[..., None] * row[..., None, k + 1:]], dim=-1)
+        rows.append(row)
+    rows.append(rest[..., 0, :])              # the last row swaps with itself
+    lu = torch.stack(rows, dim=-2)
+    if not pivot:
+        return lu, r.to(torch.int32).expand(*batch, d)
+    pivs.append(r[d - 1].expand(batch))
+    return lu, torch.stack(pivs, dim=-1).to(torch.int32)
 
 
 def lu_ok(lu, a_scale=None, tol=None):
@@ -67,13 +73,18 @@ def lu_ok(lu, a_scale=None, tol=None):
         torch.isfinite(diag).all(dim=-1)
 
 
-def lu_solve(lu, piv, b):
-    """Solve with packed factors. b: [..., D] or [..., D, K]."""
+def lu_solve(lu, piv, b, pivot: bool = True):
+    """Solve with packed factors. b: [..., D] or [..., D, K]. pivot=False:
+    the factor is pivot-free (``lu_factor(pivot=False)``), piv the identity,
+    and no row is swapped."""
     d = lu.shape[-1]
     vec = b.ndim == lu.ndim - 1
-    b = (b[..., None] if vec else b).clone()
-    for k in range(d):
-        _swap_rows(b, k, piv[..., k])
+    b = b[..., None] if vec else b
+    if pivot:
+        r = torch.arange(d, device=b.device)
+        piv = piv.to(torch.int64)
+        for k in range(d - 1):                # the last row swaps with itself
+            b = _swap_rows(b, k, piv[..., k], r)
     # forward substitution (unit lower)
     ys = []
     for i in range(d):

@@ -1,7 +1,8 @@
 """Lockstep masked adaptive steppers (the ported subset: fixed-stage radau,
 with the dense stage LU or the matrix-free GMRES / tridiagonal stage solvers,
-mass matrices, dense output, t_eval and quadratures; its continuous adjoint;
-and the fused one-kernel Radau5 step)."""
+mass matrices, dense output, t_eval, quadratures and events; its continuous
+adjoint; RODAS4 and its discrete adjoint; and the fused one-kernel Radau5
+step)."""
 
 from __future__ import annotations
 
@@ -18,23 +19,55 @@ from janus_tpu_torch.solve.common import (
     PARAMS_EXHAUSTED,
 )
 from janus_tpu_torch.solve.adjoint import radau_adjoint
+from janus_tpu_torch.solve.adjoint_rodas import rodas_adjoint
+from janus_tpu_torch.solve.events import Event
 from janus_tpu_torch.solve.options import Options
 from janus_tpu_torch.solve.radau import solve_radau
 from janus_tpu_torch.solve.radau_fused import solve_radau_fused
+from janus_tpu_torch.solve.rodas import solve_rodas
 
 # method name -> fixed stage count (None: keep options.min_stages)
 _RADAU_STAGES = {"radau": None, "radau5": 3, "radau9": 5, "radau13": 7}
 
 # method -> feature support matrix, the ported rows of the reference's.
-# solve_ivp RAISES on an unsupported feature instead of dropping it. Of the
-# 'radau' row jac=, mass= and t_eval= work (as do dense= and quad=); events=
-# is the reference's and raises NotImplementedError in solve_radau until it
-# is ported.
+# solve_ivp RAISES on an unsupported feature instead of dropping it.
 FEATURES = {
     #                jac    mass   events t_eval
     "radau":        (True,  True,  True,  True),
     "radau_fused":  (False, False, False, False),
+    "rodas":        (True,  True,  True,  True),
 }
+
+# the reference's aliases (janus_tpu/solve/__init__.py); radau5/9/13 also
+# fix the stage count (_RADAU_STAGES)
+_ALIASES = {
+    "rk45": "dopri5", "dop853": "dopri853",
+    "radau5": "radau", "radau9": "radau", "radau13": "radau",
+    "ndf": "bdf", "bdf_classic": "bdf",
+    "ros4": "grk4t", "rosenbrock": "grk4t",
+}
+
+# the reference's methods that are not ported yet -> their ROADMAP.md Queue 1
+# item
+_UNPORTED = {"dopri5": 14, "dopri853": 14, "bdf": 15, "seulex": 16,
+             "radaup": 17, "bdf2": 18, "grk4t": 18}
+
+
+def _canonical(method: str) -> str:
+    """The method's canonical name; NotImplementedError (naming its item)
+    for a method of the reference that is not ported, ValueError for a name
+    the reference does not know either."""
+    canonical = _ALIASES.get(method, method)
+    if canonical in _UNPORTED:
+        raise NotImplementedError(
+            f"method {method!r} is not ported to janus_tpu_torch yet "
+            f"(ROADMAP.md Queue 1, item {_UNPORTED[canonical]}); ported: "
+            f"{sorted(set(FEATURES) | set(_RADAU_STAGES))}")
+    if canonical not in FEATURES:
+        raise ValueError(f"unknown method {method!r}; known: "
+                         f"{sorted(set(FEATURES) | set(_UNPORTED))} and the "
+                         f"aliases {sorted(_ALIASES)}")
+    return canonical
 
 
 def _check_features(method: str, jac, mass, events, t_eval):
@@ -69,11 +102,16 @@ def solve_ivp(f: Callable, tspan, y0, method: str = "dopri5", args: Any = None,
     Options(stage_solver='gmres'|'tridiag', precond='tridiag'|'lines'|
     'block'), matrix-free stage solves for method-of-lines systems, and
     with t_eval= (Solution.ys, and sens_ys with tangents=), dense=N
-    (Solution.interpolate) and quad= (Solution.quad, and sens_quad with
+    (Solution.interpolate), quad= (Solution.quad, and sens_quad with
+    tangents=) and events= (``solve.events.Event``; Solution.event_t,
+    event_y, event_idx, and sens_t with tangents=); 'rodas' (RODAS4, with
+    mass=, t_eval=, events=, dense=, quad= and, in terminal mode,
     tangents=); and
     'radau_fused' (Radau5 with the whole step attempt in one CUDA kernel;
-    on the card f must be in models.problems.DEVICE_PROBLEMS). Every other
-    method raises NotImplementedError until its slice is ported (ROADMAP.md).
+    on the card f must be in models.problems.DEVICE_PROBLEMS). The
+    reference's other methods raise NotImplementedError naming the
+    ROADMAP.md item that ports them; a name the reference does not know
+    raises ValueError.
     options: Options(...); or pass rtol=…, atol=… etc. as keywords.
     device: where a y0 that is not a torch tensor goes (default: the CUDA
     card; with no card, pass a CPU tensor or device='cpu'). A torch y0
@@ -86,32 +124,27 @@ def solve_ivp(f: Callable, tspan, y0, method: str = "dopri5", args: Any = None,
     t0, tf = tspan
 
     method = method.lower()
-    if method not in _RADAU_STAGES and method != "radau_fused":
-        raise NotImplementedError(
-            f"method {method!r} is not ported to janus_tpu_torch yet; "
-            f"ported: {sorted(_RADAU_STAGES) + ['radau_fused']} "
-            "(ROADMAP.md Queue 1)")
-    canonical = "radau" if method in _RADAU_STAGES else method
+    canonical = _canonical(method)
     _check_features(canonical, jac, mass, events, t_eval)
     if (tangents is not None or args_tangents is not None) \
-            and canonical != "radau":
+            and canonical not in ("radau", "rodas"):
         raise ValueError("tangents= (internal-differentiation sensitivities)"
                          " is supported by the 'radau'/'radaup' methods, "
-                         "'seulex', 'rodas' and 'bdf'; use jax.jvp through "
-                         "the solve otherwise")
-    if quad is not None and canonical != "radau":
+                         "'seulex', 'rodas' and 'bdf'; use torch.func.jvp "
+                         "through the solve otherwise")
+    if quad is not None and canonical not in ("radau", "rodas"):
         raise ValueError("quad= (running-cost quadratures) is supported by "
                          "the fixed-stage 'radau' methods (collocation-"
                          "weight rule, incl. sens_quad), 'radaup', 'rodas',"
                          " 'seulex', 'bdf' and 'dopri5'/'dopri853' (Gauss-"
                          "Legendre on the dense interpolant); integrate "
                          "the cost as an extra state otherwise")
-    if dense and canonical != "radau":
+    if dense and canonical not in ("radau", "rodas"):
         raise ValueError("dense= (post-hoc Solution.interpolate) is "
                          "supported by the 'radau'/'radaup' methods, "
                          "'rodas', 'seulex', 'bdf' and "
                          "'dopri5'/'dopri853'; use t_eval= otherwise")
-    if step_args is not None and canonical != "radau":
+    if step_args is not None and canonical not in ("radau", "rodas"):
         raise ValueError("step_args= (per-accepted-step parameter slabs, "
                          "the reference's theta/nparams_step semantics) is "
                          "supported by the one-step adaptive methods "
@@ -122,6 +155,11 @@ def solve_ivp(f: Callable, tspan, y0, method: str = "dopri5", args: Any = None,
                          "solve.fixed.odeint_fixed(step_args=) otherwise")
     if canonical == "radau_fused":
         return solve_radau_fused(f, t0, tf, y0, args, options, device)
+    if canonical == "rodas":
+        return solve_rodas(f, t0, tf, y0, args, options, t_eval, jac=jac,
+                           mass=mass, events=events, tangents=tangents,
+                           args_tangents=args_tangents, quad=quad,
+                           dense=dense, step_args=step_args, device=device)
     stages = _RADAU_STAGES[method]
     if stages is not None:
         options = options.replace(min_stages=stages, max_stages=stages)
@@ -138,8 +176,8 @@ def solve_ivp(f: Callable, tspan, y0, method: str = "dopri5", args: Any = None,
 
 
 # method -> the Queue 1 item of ROADMAP.md that brings its adjoint
-_ADJOINT_ITEMS = {"radaup": 17, "rodas": 13, "seulex": 16, "bdf": 15,
-                  "dopri5": 14, "dopri853": 14}
+_ADJOINT_ITEMS = {"radaup": 17, "seulex": 16, "bdf": 15, "dopri5": 14,
+                  "dopri853": 14}
 
 
 def solve_adjoint(f: Callable, tspan, y0, method: str = "radau",
@@ -152,10 +190,14 @@ def solve_adjoint(f: Callable, tspan, y0, method: str = "radau",
     tensor leaves of args, t0, tf and the sample times.
 
     method: 'radau' (and 'radau5'/'radau9'/'radau13'; the continuous
-    adjoint, which also takes cost=, n_alg=, checkpoints=, mass=, jac=: see
-    ``radau_adjoint``). The reference's other families ('radaup', 'rodas',
-    'seulex', 'bdf', 'dopri5', 'dopri853') raise NotImplementedError until
-    their adjoints are ported (ROADMAP.md Queue 1)."""
+    adjoint, which also takes events=, cost=, n_alg=, checkpoints=, mass=,
+    jac=: see ``radau_adjoint``) and 'rodas' (the discrete adjoint, which
+    takes events=, cost=, n_alg=, mass=, jac=: see ``rodas_adjoint``). With
+    terminal events= both return (y*, t*), or (ys, y*, t*) with t_eval=.
+    Aliases follow solve_ivp's table. The reference's other families
+    ('radaup', 'seulex', 'bdf', 'dopri5', 'dopri853') raise
+    NotImplementedError until their adjoints are ported (ROADMAP.md Queue
+    1); a method with no reverse mode raises ValueError."""
     method = method.lower()
     if method in _RADAU_STAGES:
         stages = _RADAU_STAGES[method]
@@ -164,19 +206,25 @@ def solve_adjoint(f: Callable, tspan, y0, method: str = "radau",
                 min_stages=stages, max_stages=stages)
         return radau_adjoint(f, tspan, y0, args=args, options=options,
                              t_eval=t_eval, **kw)
-    if method in _ADJOINT_ITEMS:
+    canonical = _ALIASES.get(method, method)
+    if canonical == "rodas":
+        return rodas_adjoint(f, tspan, y0, args=args, options=options,
+                             t_eval=t_eval, **kw)
+    if canonical in _ADJOINT_ITEMS:
         raise NotImplementedError(
             f"solve_adjoint: the adjoint of method {method!r} is not ported "
             f"to janus_tpu_torch yet (ROADMAP.md Queue 1, item "
-            f"{_ADJOINT_ITEMS[method]}); ported: 'radau'")
+            f"{_ADJOINT_ITEMS[canonical]}); ported: 'radau', 'rodas'")
     raise ValueError(
         f"solve_adjoint: no reverse mode for method {method!r}; available: "
-        "radau (continuous). Forward sensitivities: solve_ivp(tangents=)")
+        "radau (continuous), rodas (discrete). Forward sensitivities: "
+        "solve_ivp(tangents=)")
 
 
 __all__ = [
-    "solve_ivp", "solve_radau", "solve_radau_fused", "Solution", "Options",
-    "FEATURES", "radau_adjoint", "solve_adjoint",
+    "solve_ivp", "solve_radau", "solve_radau_fused", "solve_rodas",
+    "Solution", "Options", "Event", "FEATURES", "radau_adjoint",
+    "rodas_adjoint", "solve_adjoint",
     "RUNNING", "SUCCESS", "MAX_STEPS", "STEP_UNDERFLOW", "NEWTON_STALL",
     "EVENT_TERMINATED", "PARAMS_EXHAUSTED",
 ]

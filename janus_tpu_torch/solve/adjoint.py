@@ -55,8 +55,14 @@ How the sweep is built:
   with its mesh, in the backward pass. A repeated solve reproduces the first
   to the bit on the same device (the mesh is written by unique index).
 
-Terminal events (``events=``) and a variable-order forward ladder are the
-reference's and raise ``NotImplementedError`` here until they are ported.
+- terminal ``events=``: the solve returns (y*, t*), both differentiable,
+  through the implicit-function jump at the event, λ(t*) = ȳ − w·g_yᵀ and
+  ∂L/∂θ −= w·g_θ with w = (ȳ·ẏ* + t̄ + q̄·l*)/(g_t + g_y·ẏ*); the first
+  backward step of an event lane is the partial step t* → t_n on the
+  step's polynomial (θ_end = (t*−t_n)/h_n).
+
+A variable-order forward ladder is the reference's and raises
+``NotImplementedError`` here until it is ported.
 
 Accuracy contract: gradients match jvp/FD through the solve to O(rtol)
 (discretize-then-optimize and optimize-then-discretize differ by the local
@@ -79,6 +85,7 @@ from janus_tpu_torch.control.precond import (blocks_of_jacobian,
 from janus_tpu_torch.linalg.gmres import gmres_dense_solve
 from janus_tpu_torch.linalg.smalllu import lu_factor, lu_solve
 from janus_tpu_torch.solve import common as cm
+from janus_tpu_torch.solve.events import normalize_events
 from janus_tpu_torch.solve.options import Options
 from janus_tpu_torch.solve.radau import (_factorize, _gmres_block_core,
                                          _gmres_core, _gmres_mass_blocks,
@@ -130,6 +137,14 @@ def radau_adjoint(f: Callable, tspan, y0, args=None,
     and each segment's mesh is recomputed during the backward sweep. Size
     ``options.adjoint_steps`` for the per-SEGMENT step budget.
 
+    events: TERMINAL event spec(s) (``solve.events.Event``; every event must
+    be terminal; not with ``checkpoints=``). Returns ``(y, t)``, the state
+    and time each lane stopped at (t < tf on a triggered lane), both
+    differentiable; with cost ``(y, t, q)``, q truncated at t*. With t_eval
+    ``(ys, y, t[, q])``: the segments are chained per lane, a triggered
+    lane's later segments are zero-length (t* → t*) and its samples
+    strictly past t* are NaN.
+
     The host syncs of the last backward sweep are in
     ``radau_adjoint.host_syncs`` (the forward's in
     ``solve_radau.host_syncs``).
@@ -140,11 +155,15 @@ def radau_adjoint(f: Callable, tspan, y0, args=None,
             "radau_adjoint over the variable-order ladder (min_stages != "
             "max_stages) is not ported to janus_tpu_torch yet; it comes "
             "with radaup (ROADMAP.md Queue 1, item 17)")
-    if events is not None:
-        raise NotImplementedError(
-            "radau_adjoint(events=...) is not ported to janus_tpu_torch "
-            "yet; it comes with solve/events.py, the rest of the radau "
-            "features (ROADMAP.md Queue 1, item 10)")
+    specs = normalize_events(events)
+    if any(not e.terminal for e in specs):
+        raise ValueError("radau_adjoint(events=...) requires every event "
+                         "terminal (non-terminal crossings don't enter the "
+                         "returned (y_term, t_term))")
+    if specs and checkpoints:
+        raise ValueError("checkpoints= is terminal-mode only (an event "
+                         "crossing a segment boundary would be missed by "
+                         "the warm-started chain)")
     if n_alg and mass is None:
         raise ValueError("n_alg > 0 (index-1 DAE adjoint) needs the "
                          "singular mass = blockdiag(A, 0)")
@@ -159,37 +178,25 @@ def radau_adjoint(f: Callable, tspan, y0, args=None,
         mass = cm.like(mass, y0)
     use_cost = cost is not None
     run = _build_adjoint(f, opts, jac_user=jac, mass=mass, n_alg=n_alg,
-                         cost=cost, remat=bool(checkpoints))
+                         cost=cost, remat=bool(checkpoints), events=specs)
     if t_eval is None and not checkpoints:
-        y, _, _, *q = run(t0, tf, y0, args, None)
-        return (y, q[0]) if use_cost else y
-
-    if _ndim(t0) != 0 or _ndim(tf) != 0:
-        raise ValueError(
-            f"radau_adjoint({'t_eval' if t_eval is not None else 'checkpoints'}"
-            "=...) chains segments over a shared grid; t0/tf must be "
-            "scalars")
-    t0b, _, y0b = cm.broadcast_batch(t0, tf, y0)
-    if t_eval is not None:
-        t_eval = cm.like(t_eval, y0b)
-        if t_eval.ndim != 1 or t_eval.shape[0] < 1:
-            raise ValueError("t_eval must be a non-empty 1-D grid")
-        edges = [t0] + list(t_eval.unbind(0))
-    else:
+        return adjoint_outputs(run(t0, tf, y0, args, None), bool(specs))
+    if t_eval is None:
+        if _ndim(t0) != 0 or _ndim(tf) != 0:
+            raise ValueError("radau_adjoint(checkpoints=...) chains segments "
+                             "over a shared grid; t0/tf must be scalars")
         # uniform segment boundaries; the rematerialized Function stores only
         # each segment's inputs, and its mesh is recomputed going backward
+        t0b, _, y0b = cm.broadcast_batch(t0, tf, y0)
         ta, tb = cm.like(t0, y0b), cm.like(tf, y0b)
-        edges = list((ta + (tb - ta) * torch.linspace(
+        t_eval = (ta + (tb - ta) * torch.linspace(
             0.0, 1.0, int(checkpoints) + 1, dtype=y0b.dtype,
-            device=y0b.device)).unbind(0))
-    y, h, q_sum, ys = y0b, None, None, []
-    for ta, tb in zip(edges[:-1], edges[1:]):
-        y, _, h, *q = run(ta, tb, y, args, h)
-        ys.append(y)
-        if use_cost:
-            q_sum = q[0] if q_sum is None else q_sum + q[0]
-    out = torch.stack(ys, dim=1) if t_eval is not None else y   # [M, T, D]
-    return (out, q_sum) if use_cost else out
+            device=y0b.device))[1:]
+    ys, y, t_end, q = chain_segments(run, t0, tf, y0, args, t_eval,
+                                     bool(specs), "radau_adjoint")
+    if checkpoints:
+        return (y, q) if use_cost else y
+    return sampled_outputs(ys, y, t_end, q, bool(specs))
 
 
 radau_adjoint.host_syncs = 0
@@ -197,6 +204,70 @@ radau_adjoint.host_syncs = 0
 
 def _ndim(x):
     return x.ndim if isinstance(x, torch.Tensor) else np.ndim(x)
+
+
+def adjoint_outputs(outs, events):
+    """An adjoint Function's (y, t, h_next, event_idx[, q]) as the user sees
+    it in terminal mode: y, (y, q), (y, t) or (y, t, q)."""
+    y, t, _, _, *q = outs
+    head = (y, t) if events else (y,)
+    out = head + tuple(q)
+    return out if len(out) > 1 else y
+
+
+def sampled_outputs(ys, y, t_end, q, events):
+    """t_eval mode's outputs as the user sees them: ys, (ys, q), (ys, y*,
+    t*) or (ys, y*, t*, q)."""
+    out = (ys, y, t_end) if events else (ys,)
+    if q is not None:
+        out += (q,)
+    return out if len(out) > 1 else ys
+
+
+def chain_segments(run, t0, tf, y0, args, t_eval, events, who):
+    """The adjoints' segment chain: one ``run(ta, tb, y, args, h0) -> (y, t,
+    h_next, event_idx[, q])`` per segment t0 → t_eval[0] → … →
+    t_eval[-1], each warm-started with the previous segment's step proposal,
+    so the samples are exact solve endpoints. Returns (ys [M, T, D], y_F,
+    t_F [M], q summed over the segments, or None).
+
+    With terminal events the segments are chained per lane: once a lane
+    triggers, its later segments are ZERO-LENGTH solves t* → t* (the
+    identity: their boundary cotangents cancel, so the event jump of the
+    triggering segment's backward pass carries the whole gradient), and its
+    samples strictly past t* are NaN (the forward solvers' truncation); the
+    sample exactly at t* (a trigger on a segment boundary) stays."""
+    if _ndim(t0) != 0 or _ndim(tf) != 0:
+        raise ValueError(f"{who}(t_eval=...) chains segments over a shared "
+                         "grid; t0/tf must be scalars")
+    t0b, _, y0b = cm.broadcast_batch(t0, tf, y0)
+    t_eval = cm.like(t_eval, y0b)
+    if t_eval.ndim != 1 or t_eval.shape[0] < 1:
+        raise ValueError("t_eval must be a non-empty 1-D grid")
+    edges = [t0] + list(t_eval.unbind(0))
+    m = y0b.shape[0]
+    y, h, q_sum, ys = y0b, None, None, []
+    done = torch.zeros((m,), dtype=torch.bool, device=y0b.device)
+    t_star = t0b
+    for ta, tb in zip(edges[:-1], edges[1:]):
+        if events:
+            ta = torch.where(done, t_star, cm.like(ta, y0b))
+            tb = torch.where(done, t_star, cm.like(tb, y0b))
+        y, t, h, idx, *q = run(ta, tb, y, args, h)
+        if events:
+            trig = (idx >= 0) & ~done
+            t_star = torch.where(trig, t, t_star)
+            # a trigger strictly inside the segment voids its endpoint
+            # sample; a trigger exactly at tb keeps it
+            dead = done | (trig & (t != tb))
+            done = done | trig
+            ys.append(torch.where(dead[:, None], torch.nan, y))
+        else:
+            ys.append(y)
+        if q:
+            q_sum = q[0] if q_sum is None else q_sum + q[0]
+    t_end = torch.where(done, t_star, t_eval[-1])
+    return torch.stack(ys, dim=1), y, t_end, q_sum
 
 
 def _split_diff(args):
@@ -240,7 +311,7 @@ def constrained_ydot(fa, t, y, dl, mass, n_alg, *, use_gmres=False,
     def dense_solve(mat, rhs):
         if use_gmres:
             return gmres_dense_solve(mat, rhs, gmres_iters)
-        return lu_solve(*lu_factor(mat, pivot=pivot), rhs)
+        return lu_solve(*lu_factor(mat, pivot=pivot), rhs, pivot=pivot)
 
     if not n_alg:
         return dense_solve(mb, f_t)
@@ -252,9 +323,10 @@ def constrained_ydot(fa, t, y, dl, mass, n_alg, *, use_gmres=False,
     gz = torch.stack([jvp(f_at, (y,), (_unit(y, n1 + a),))[1][:, n1:]
                       for a in range(n_alg)], dim=-1)
     xdot = dense_solve(mb[:, :n1, :n1], f_t[:, :n1])
+    t = t.contiguous()           # forward mode refuses a broadcast primal
     g_t = jvp(lambda tt: fa(tt, y, dl), (t,), (torch.ones_like(t),))[1][:, n1:]
     gx_xdot = jvp(f_at, (y,), (F.pad(xdot, (0, n_alg)),))[1][:, n1:]
-    zdot = -lu_solve(*lu_factor(gz, pivot=pivot), g_t + gx_xdot)
+    zdot = -lu_solve(*lu_factor(gz, pivot=pivot), g_t + gx_xdot, pivot=pivot)
     return torch.cat([xdot, zdot], dim=-1)
 
 
@@ -267,9 +339,10 @@ def _unit(y, j):
 class _RadauAdjointFn(torch.autograd.Function):
     """One adaptive Radau solve (a whole span or one chained segment) with
     the continuous adjoint as its backward. Inputs: the static setup ``cfg``
-    (f, options, jac, mass, n_alg, cost, the args tree's rebuild, remat),
-    then t0, tf, y0, h0 and the differentiable leaves of args. Outputs
-    (y, t, h_next[, q]); h_next is not differentiable."""
+    (f, options, jac, mass, n_alg, cost, events, the args tree's rebuild,
+    remat), then t0, tf, y0, h0 and the differentiable leaves of args.
+    Outputs (y, t, h_next, event_idx[, q]); h_next and event_idx (−1 where
+    no event fired) are not differentiable."""
 
     @staticmethod
     def forward(ctx, cfg, t0, tf, y0, h0, *dleaves):
@@ -285,26 +358,27 @@ class _RadauAdjointFn(torch.autograd.Function):
         ctx.has_h0 = h0 is not None
         if ctx.has_h0:
             tensors.append(h0)
-        tensors += [y0, *dleaves, sol.y, sol.t]
+        idx = event_index(sol)
+        tensors += [y0, *dleaves, sol.y, sol.t, idx]
         if not cfg["remat"]:
             tensors += [sol.stats["naccept"], sol.mesh["t"], sol.mesh["h"],
                         sol.mesh["y"], sol.mesh["q"]]
         ctx.save_for_backward(*tensors)
         ctx.set_materialize_grads(False)
-        ctx.mark_non_differentiable(sol.h_next)
-        outs = (sol.y, sol.t, sol.h_next)
+        ctx.mark_non_differentiable(sol.h_next, idx)
+        outs = (sol.y, sol.t, sol.h_next, idx)
         return outs + (sol.quad,) if cfg["cost"] is not None else outs
 
     @staticmethod
     @once_differentiable
-    def backward(ctx, ybar, tbar, _hbar, qbar=None):
+    def backward(ctx, ybar, tbar, _hbar, _idxbar, qbar=None):
         cfg = ctx.cfg
         saved = list(ctx.saved_tensors)
         t0, tf = (saved.pop(0) if x is None else x for x in ctx.t_in)
         h0 = saved.pop(0) if ctx.has_h0 else None
         y0 = saved.pop(0)
         dleaves = [saved.pop(0) for _ in range(ctx.n_leaves)]
-        y_end, t_term = saved.pop(0), saved.pop(0)
+        y_end, t_term, ev_idx = saved.pop(0), saved.pop(0), saved.pop(0)
         if cfg["remat"]:
             # the segment again, this time with its mesh (to the bit the
             # forward pass's solve: same inputs, same warm start)
@@ -319,13 +393,25 @@ class _RadauAdjointFn(torch.autograd.Function):
         lam0, gleaves, t0bar, tfbar = _adjoint_sweep(
             cfg["f"], cfg["opts"], cfg["jac"], cfg["mass"], mesh, nacc, t0b,
             tfb, t_term, y0b, cfg["rebuild"], dleaves, y_end, ybar, tbar,
-            cfg["n_alg"], cost=cfg["cost"], qbar=qbar)
-        # cotangents in the shapes of the primal inputs; a scalar t0/tf gets
-        # the sum over the lanes, and what is no tensor gets None
-        t_cts = [None if not isinstance(x, torch.Tensor)
-                 else bar.sum().reshape(x.shape) if x.numel() == 1 else bar
-                 for x, bar in zip((t0, tf), (t0bar, tfbar))]
-        return (None, *t_cts, lam0.reshape(ctx.y0_shape), None, *gleaves)
+            cfg["n_alg"], cost=cfg["cost"], qbar=qbar,
+            specs=cfg["events"], ev_idx=ev_idx)
+        return (None, *boundary_cotangents(t0, tf, t0bar, tfbar),
+                lam0.reshape(ctx.y0_shape), None, *gleaves)
+
+
+def event_index(sol):
+    """Solution.event_idx, or −1 on every lane of a solve without events."""
+    if sol.event_idx is not None:
+        return sol.event_idx
+    return torch.full(sol.t.shape, -1, dtype=torch.int32, device=sol.t.device)
+
+
+def boundary_cotangents(t0, tf, t0bar, tfbar):
+    """t0's and tf's cotangents in the shapes of the primal inputs: a
+    scalar gets the sum over the lanes, and what is no tensor gets None."""
+    return [None if not isinstance(x, torch.Tensor)
+            else bar.sum().reshape(x.shape) if x.numel() == 1 else bar
+            for x, bar in zip((t0, tf), (t0bar, tfbar))]
 
 
 def _forward_solve(cfg, t0, tf, y0, h0, dleaves, mesh_size):
@@ -333,22 +419,50 @@ def _forward_solve(cfg, t0, tf, y0, h0, dleaves, mesh_size):
         return solve_radau(cfg["f"], t0, tf, y0, args=cfg["rebuild"](dleaves),
                            options=cfg["opts"], jac=cfg["jac"],
                            mass=cfg["mass"], quad=cfg["cost"],
+                           events=cfg["events"] or None,
                            _mesh_size=mesh_size, _h0=h0)
 
 
-def _build_adjoint(f, opts, jac_user, mass, n_alg=0, cost=None, remat=False):
-    """run(t0, tf, y0, args, h0) -> (y, t, h_next[, q]) through
+def _build_adjoint(f, opts, jac_user, mass, n_alg=0, cost=None, remat=False,
+                   events=()):
+    """run(t0, tf, y0, args, h0) -> (y, t, h_next, event_idx[, q]) through
     ``_RadauAdjointFn``. remat: keep only the inputs in the forward pass and
     solve again, with the mesh, in the backward pass (``checkpoints=``)."""
 
     def run(t0, tf, y0, args, h0):
         dleaves, rebuild, _, _ = _split_diff(args)
         cfg = {"f": f, "opts": opts, "jac": jac_user, "mass": mass,
-               "n_alg": n_alg, "cost": cost, "rebuild": rebuild,
-               "remat": remat}
+               "n_alg": n_alg, "cost": cost, "events": events,
+               "rebuild": rebuild, "remat": remat}
         return _RadauAdjointFn.apply(cfg, t0, tf, y0, h0, *dleaves)
 
     return run
+
+
+def event_jump(specs, ev_idx, t_term, y_end, dleaves, rebuild, ybar, ydot,
+               tbar_total):
+    """The implicit-function jump of a lane stopped by a terminal event:
+    (λ(t*) [M, D], the leaves' gradient contributions). With w = tbar_total
+    / (g_t + g_y·ẏ*), where tbar_total is the lane's whole dL/dt* through
+    the state, t and cost outputs (ȳ·ẏ* + t̄ + q̄·l*), λ(t*) = ȳ − w·g_yᵀ and
+    the leaves get −w·g_θ; g is the lane's own event (ev_idx)."""
+    is_ev = ev_idx >= 0
+    lam = ybar
+    grads = [torch.zeros_like(leaf) for leaf in dleaves]
+    for j, spec in enumerate(specs):
+        def gfun(tt, yy, dl, _sp=spec):
+            return _sp.fn(tt, yy, rebuild(dl))
+
+        den = jvp(gfun, (t_term, y_end, dleaves),
+                  (torch.ones_like(t_term), ydot,
+                   [torch.zeros_like(leaf) for leaf in dleaves]))[1]
+        w = tbar_total / torch.where(den == 0.0, 1.0, den)
+        on = (ev_idx == j) & is_ev
+        _, yg, dg = vjp(gfun, t_term, y_end, dleaves)[1](
+            torch.where(on, -w, 0.0))
+        lam = lam + torch.where(on[:, None], yg, 0.0)
+        grads = [g + d for g, d in zip(grads, dg)]
+    return lam, grads
 
 
 def _transposed_bands(dl, d, du):
@@ -361,11 +475,13 @@ def _transposed_bands(dl, d, du):
 
 def _adjoint_sweep(f, opts, jac_user, mass, mesh, nacc, t0b, tfb, t_term,
                    y0b, rebuild, dleaves, y_end, ybar, tbar, n_alg=0,
-                   cost=None, qbar=None):
+                   cost=None, qbar=None, specs=(), ev_idx=None):
     """The backward loop over the stored accepted-step mesh. Returns
     (λ(t0) [M, D], the leaves' gradients, t̄0 [M], t̄f [M]). The mesh dict
     is emptied once it has been read, so that a caller that holds no other
-    reference frees the rings before the gradients are assembled."""
+    reference frees the rings before the gradients are assembled. specs /
+    ev_idx: the terminal events and which one stopped each lane (−1:
+    none)."""
     use_cost = cost is not None
     m, dim = y_end.shape
     dtype, dev = y_end.dtype, y_end.device
@@ -477,6 +593,15 @@ def _adjoint_sweep(f, opts, jac_user, mass, mesh, nacc, t0b, tfb, t_term,
         tfbar = tfbar + tbar.to(dtype).broadcast_to((m,))
     if use_cost:
         tfbar = tfbar + torch.sum(qb * l_term, dim=-1)
+    grads = [torch.zeros_like(leaf) for leaf in dleaves]
+    if specs:
+        # implicit-function jump at the terminating event: λ(t*) = ȳ − w·g_yᵀ,
+        # grads −= w·g_θ, w = (ȳ·ẏ* + t̄ + q̄·l*)/(g_t + g_y·ẏ*); a lane
+        # stopped by an event does not see tf at all
+        ybar, jump = event_jump(specs, ev_idx, t_term, y_end, dleaves,
+                                rebuild, ybar, ydot_term, tfbar)
+        grads = [g + j for g, j in zip(grads, jump)]
+        tfbar = torch.where(ev_idx >= 0, 0.0, tfbar)
 
     # ν(t_term) = M⁻ᵀ λ(t_term)
     if n_alg:
@@ -498,10 +623,8 @@ def _adjoint_sweep(f, opts, jac_user, mass, mesh, nacc, t0b, tfb, t_term,
     else:
         lam = ybar
 
-    grads = [torch.zeros_like(leaf) for leaf in dleaves]
     bad = nacc > cap                                  # mesh overflow
     theta = 1.0 - c_nodes                             # [s]
-    powers = torch.stack([theta ** (q + 1) for q in range(s)], dim=-1)
 
     # lanes own nacc of the mesh's slots; the slots past every lane's mesh
     # are dead, so the loop starts at the longest mesh (one host read)
@@ -510,12 +633,24 @@ def _adjoint_sweep(f, opts, jac_user, mass, mesh, nacc, t0b, tfb, t_term,
         live = k < nacc                               # [M]
         tn, hn = mesh["t"][:, k], mesh["h"][:, k]     # step start, signed h
         yn, qq = mesh["y"][:, k], mesh["q"][:, k]     # [M, D], [M, s, D]
+        # the step runs to θ_end = 1 on its polynomial, but on event lanes
+        # the LAST recorded step holds t*, and the sweep's first step is the
+        # PARTIAL step t* → t_n, θ_end = (t*−t_n)/h_n (floored: a root at a
+        # step start would give h_eff = 0 in γ/h_b)
+        th_end = torch.where(
+            (k == nacc - 1) & (ev_idx >= 0), torch.clamp(
+                (t_term - tn) / torch.where(hn == 0.0, 1.0, hn), 1e-6, 1.0),
+            1.0) if specs else torch.ones_like(hn)
+        h_eff = hn * th_end
         # primal interpolant at the backward stage nodes
-        # τ_i = t_end + c_i·h_b ⇒ θ_i = 1 − c_i on the step polynomial
-        t_end = tn + hn
-        hb = torch.where(live, -hn, -1.0)             # signed backward step
-        ys = yn[:, None, :] + torch.einsum("sq,mqd->msd", powers, qq)
-        y_hi = yn + torch.sum(qq, dim=1)              # poly(1)
+        # τ_i = t_end + c_i·h_b ⇒ θ_i = θ_end·(1 − c_i) on the step polynomial
+        th_i = th_end[:, None] * theta[None, :]                    # [M, s]
+        pw = torch.stack([th_i ** (q + 1) for q in range(s)], dim=-1)
+        ys = yn[:, None, :] + torch.einsum("msq,mqd->msd", pw, qq)
+        pe = torch.stack([th_end ** (q + 1) for q in range(s)], dim=-1)
+        y_hi = yn + torch.einsum("mq,mqd->md", pe, qq)
+        t_end = tn + h_eff
+        hb = torch.where(live, -h_eff, -1.0)          # signed backward step
         taus = t_end[:, None] + c_nodes[None, :] * hb[:, None]
 
         # dead lanes: substitute safe (finite) evaluation points
@@ -572,10 +707,11 @@ def _adjoint_sweep(f, opts, jac_user, mass, mesh, nacc, t0b, tfb, t_term,
                 tab, hb, jac_adj, mass_t, opts.pivoting)
 
             def solve_real(b, _lu=lu_r, _piv=piv_r):
-                return lu_solve(_lu, _piv, b)
+                return lu_solve(_lu, _piv, b, pivot=opts.pivoting)
 
             def solve_cplx(p, b, _lu=lu_c, _piv=piv_c):
-                return lu_solve(_lu[:, p], _piv[:, p], b)
+                return lu_solve(_lu[:, p], _piv[:, p], b,
+                                pivot=opts.pivoting)
 
         # transformed simplified iteration on the LINEAR adjoint stage system
         def g_stage(i, z_i):
@@ -610,7 +746,7 @@ def _adjoint_sweep(f, opts, jac_user, mass, mesh, nacc, t0b, tfb, t_term,
 
         # quadrature: ∂L/∂θ += h Σ_i b_i · (∂f/∂θ)ᵀ ν(τ_i) (+ q̄·l_θ)
         for i in range(s):
-            wgt = torch.where(live, hn * b_w[i], 0.0)[:, None]   # [M, 1]
+            wgt = torch.where(live, h_eff * b_w[i], 0.0)[:, None]   # [M, 1]
             contrib = pulls[i](wgt * (lam + z[:, i, :]))[1]
             grads = [ga + gc for ga, gc in zip(grads, contrib)]
             if use_cost:

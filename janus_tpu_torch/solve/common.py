@@ -1,4 +1,5 @@
-"""Shared machinery for the lockstep masked solvers (the subset radau needs).
+"""Shared machinery for the lockstep masked solvers (the subset radau and
+rodas need).
 
 The whole batch advances in one Python loop and every per-trajectory
 decision is a ``torch.where`` select. The device is the one ``y0`` lies on;
@@ -121,6 +122,12 @@ def dense_window(t_eval, t_old, h, accept, s):
     """Which t_eval points an accepted step (t_old, t_old + h] covers, and
     where: (inside [M, T] bool, θ-powers [M, T, s] with θ ∈ [0, 1] the
     point's place in the step, power q+1 at index q)."""
+    inside, theta = _dense_inside(t_eval, t_old, h, accept)
+    tpow = torch.stack([theta ** (q + 1) for q in range(s)], dim=-1)
+    return inside, tpow
+
+
+def _dense_inside(t_eval, t_old, h, accept):
     t_new = t_old + h
     # direction-aware window membership
     lo = torch.minimum(t_old, t_new)[:, None]
@@ -129,8 +136,60 @@ def dense_window(t_eval, t_old, h, accept, s):
     inside = (tg > lo) & (tg <= hi) | ((tg >= lo) & (tg < hi)
                                        & (h < 0)[:, None] & (tg == lo))
     theta = torch.clamp((tg - t_old[:, None]) / h[:, None], 0.0, 1.0)
-    tpow = torch.stack([theta ** (q + 1) for q in range(s)], dim=-1)
-    return inside & accept[:, None], tpow
+    return inside & accept[:, None], theta
+
+
+def collect_dense(out_ys, t_eval, t_old, h, accept, interp):
+    """out_ys [M, T, D] with every t_eval point inside the accepted step
+    (t_old, t_old + h] set to the step's continuous extension there;
+    interp(θ [M, T]) -> [M, T, D] with θ ∈ [0, 1]."""
+    inside, theta = _dense_inside(t_eval, t_old, h, accept)
+    return torch.where(inside[..., None], interp(theta), out_ys)
+
+
+def mask_dense_after_event(out_ys, t_eval, fired, t_event, h):
+    """NaN for the t_eval samples strictly past a terminal event time t* in
+    the direction of the march (scipy truncates t_eval at t*; with fixed
+    shapes the samples turn NaN). ``fired`` [M] flags the lanes whose
+    terminal event fired THIS step, whose dense pass filled the whole step
+    window; no later step runs for them. A sample at exactly t* keeps
+    y(t*). out_ys [..., M, T, D] (a leading tangent axis is allowed)."""
+    tg = t_eval[None, :]
+    past = torch.where((h >= 0)[:, None], tg > t_event[:, None],
+                       tg < t_event[:, None])
+    return torch.where((past & fired[:, None])[..., None], torch.nan, out_ys)
+
+
+_S35 = 0.6 ** 0.5
+GL3_NODES = (0.5 * (1 - _S35), 0.5, 0.5 * (1 + _S35))
+GL3_WEIGHTS = (5.0 / 18.0, 8.0 / 18.0, 5.0 / 18.0)
+
+
+def gl3_increment(ql, t_old, h, interp, theta_q):
+    """One step's running-cost increment ∫ l dt over [t_old, t_old +
+    θ_q·h] by 3-point Gauss-Legendre on the step's interpolant (exact to
+    degree 5). ql(t [M], y [M, D]) -> [M, Q]; interp(θ [M, 3]) ->
+    [M, 3, D]; theta_q [M]. The forward accumulation (``quad_gl3_step``)
+    and the discrete adjoints' replays call this one function, so a replay
+    reproduces the forward increment to the bit."""
+    xi = torch.tensor(GL3_NODES, dtype=t_old.dtype, device=t_old.device)
+    w = torch.tensor(GL3_WEIGHTS, dtype=t_old.dtype, device=t_old.device)
+    nodes = theta_q[:, None] * xi[None, :]                     # [M, 3]
+    yq = interp(nodes)                                         # [M, 3, D]
+    tq = t_old[:, None] + nodes * h[:, None]
+    lv = torch.stack([ql(tq[:, i], yq[:, i]) for i in range(3)],
+                     dim=1)                                    # [M, 3, Q]
+    return (h * theta_q)[:, None] * torch.sum(w[None, :, None] * lv, dim=1)
+
+
+def quad_gl3_step(ql, t_old, h, interp, accept, terminate, t_ev, q_acc):
+    """q_acc [M, Q] plus the accepted steps' GL-3 increments; lanes whose
+    terminal event fired this step integrate only to θ* = (t*−t_old)/h."""
+    theta_q = torch.where(
+        terminate, torch.clamp((t_ev - t_old) / torch.where(h == 0.0, 1.0, h),
+                               0.0, 1.0), 1.0)
+    inc = gl3_increment(ql, t_old, h, interp, theta_q)
+    return torch.where(accept[:, None], q_acc + inc, q_acc)
 
 
 def ring_write(rings, slot, mask, values):

@@ -15,6 +15,9 @@ Control flow against the reference's ``lax.while_loop``/``lax.cond``:
   changes no number and costs no sync;
 - the IND tangent loop keeps its data-dependent stop: one flag over all lanes
   per trip, as in the reference;
+- the events' bisection runs only on a step where some lane crossed, one
+  host sync a step (``solve/events.py``); with events and tangents the IND
+  jump at t* is computed every step and selected on the lanes that stop;
 - on the matrix-free path the refined error estimate is a whole GMRES solve,
   so there it is gated on one more host sync, as the reference gates it.
 
@@ -48,13 +51,15 @@ from janus_tpu_torch.control.precond import (blocks_of_jacobian,
                                              tridiag_bands)
 from janus_tpu_torch.control.precond import \
     guarded_block_lu as _guarded_block_lu
-from janus_tpu_torch.linalg.gmres import (gmres_batched, mass_matvec,
-                                          tridiag_bands_of,
+from janus_tpu_torch.linalg.gmres import (gmres_batched, gmres_dense_solve,
+                                          mass_matvec, tridiag_bands_of,
                                           tridiag_solve_auto,
                                           tridiag_solve_complex_auto)
 from janus_tpu_torch.linalg.smalllu import lu_factor, lu_ok, lu_solve
 from janus_tpu_torch.ops.smalllu import lu_factor_t, lu_solve_t
 from janus_tpu_torch.solve import common as cm
+from janus_tpu_torch.solve.events import (handle_events, init_event_state,
+                                          normalize_events)
 from janus_tpu_torch.solve.options import Options
 from janus_tpu_torch.solve.radau_tables import radau_tableau
 
@@ -618,8 +623,49 @@ def _gmres_stage_solver(tab, f, t_lin, y_lin, args, pdata, h, mass, iters,
     return _gmres_core(tab, jv, pdata, h, mass_ops, iters)
 
 
+def _event_tangent_jump(specs, f, t_ev, y_ev, args, args_rows, mass,
+                        use_gmres, gmres_iters, yd_old, qd, th_e, ev_idx,
+                        terminate, yd):
+    """The IND tangents of a lane stopped by a terminal event: the event
+    time moves with the seed direction, dt*_k = −(g_y·yd_k + g_θ·dθ_k) /
+    (g_t + g_y·ẏ*) with ẏ* = M⁻¹f(t*, y*), and the lane's sensitivity is
+    the total derivative yd(t*) + ẏ*·dt*_k (the implicit-function
+    correction). yd(t*) comes off the step's tangent polynomial qd at θ*.
+    Returns (yd with the terminated lanes replaced, dt* [K, M])."""
+    m, dim = y_ev.shape
+    k_dirs = yd.shape[0]
+    tp_ev = torch.stack([th_e ** (q + 1) for q in range(qd.shape[2])],
+                        dim=-1)                                  # [M, s]
+    yd_ev = yd_old + torch.einsum("kmqd,mq->kmd", qd, tp_ev)
+    f_ev = f(t_ev, y_ev, args)
+    if mass is None:
+        ydot = f_ev
+    elif use_gmres:
+        ydot = gmres_dense_solve(mass, f_ev, gmres_iters)
+    else:
+        ydot = lu_solve(*lu_factor(mass.expand(m, dim, dim), pivot=True),
+                        f_ev)
+    sens_sel = yd_ev
+    dts_sel = yd_ev.new_zeros((k_dirs, m))
+    for j, spec in enumerate(specs):
+        gdot = jvp(lambda tt, yy: spec.fn(tt, yy, args), (t_ev, y_ev),
+                   (torch.ones_like(t_ev), ydot))[1]
+        gy_yd = torch.stack([
+            jvp(lambda yy: spec.fn(t_ev, yy, args), (y_ev,), (yd_ev[k],))[1]
+            if args_rows[k] is None else
+            # g_θ·dθ_k rides the same joint jvp (g may read the parameters)
+            jvp(lambda yy, aa: spec.fn(t_ev, yy, aa), (y_ev, args),
+                (yd_ev[k], args_rows[k]))[1]
+            for k in range(k_dirs)])                             # [K, M]
+        dts = -gy_yd / torch.where(gdot == 0.0, 1.0, gdot)[None]
+        on = (ev_idx == j)[None, :]
+        sens_sel = torch.where(on[..., None], yd_ev + dts[..., None] * ydot,
+                               sens_sel)
+        dts_sel = torch.where(on, dts, dts_sel)
+    return torch.where(terminate[None, :, None], sens_sel, yd), dts_sel
+
+
 _LATER = {
-    "events": "the rest of the radau features (events)",
     "step_args": "the rest of the radau features (step_args)",
     "record_steps": "the rest of the radau features (step recording)",
     "qr_fallback": "the rest of the radau features (QR fallback)",
@@ -629,7 +675,7 @@ _LATER = {
 def _not_ported(name):
     raise NotImplementedError(
         f"solve_radau: {name}= is not ported to janus_tpu_torch yet; it "
-        f"comes with {_LATER[name]} (ROADMAP.md Queue 1)")
+        f"comes with {_LATER[name]} (ROADMAP.md Queue 1, item 10b)")
 
 
 def solve_radau(f: Callable, t0, tf, y0, args=None,
@@ -672,6 +718,16 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
     step, 0 = automatic) are the adjoint's seats for the same mesh and for
     chained segments.
 
+    events: ``solve.events.Event`` spec(s) (or plain callables, terminal),
+    located on each accepted step's collocation polynomial.
+    ``Solution.event_t`` / ``event_y`` / ``event_idx`` hold each lane's first
+    event (a terminal one overrides), a terminal event stops the lane at t*
+    with status EVENT_TERMINATED, ``ys`` / ``sens_ys`` samples past t* are
+    NaN and ``quad`` ends at t*. With tangents a terminated lane returns the
+    total derivative at the event, yd(t*) + ẏ*·dt*_k with dt*_k =
+    −(g_y·yd_k + g_θ·dθ_k)/(g_t + g_y·ẏ*) and ẏ* = M⁻¹f(t*, y*) (mass
+    invertible), and ``Solution.sens_t`` [K, M] holds dt*_k.
+
     The host syncs of the last solve are in ``solve_radau.host_syncs``.
     """
     opts = options if options is not None else Options()
@@ -688,9 +744,8 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
     if use_gmres and jac is not None:
         raise ValueError("stage_solver='gmres' is matrix-free (J·v by jvp, "
                          "3-probe tridiagonal preconditioner); drop jac=")
-    for name, val in (("events", events), ("step_args", step_args)):
-        if val is not None:
-            _not_ported(name)
+    if step_args is not None:
+        _not_ported("step_args")
     for name, flag in (("record_steps", opts.record_steps),
                        ("qr_fallback", opts.qr_fallback)):
         if flag:
@@ -746,8 +801,14 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
                              f"args_tangents K={k_args}")
     else:
         yd = y0.new_zeros((k_args if args_d is not None else 0, m, dim))
+    # per-direction parameter tangents for the joint jvp's
+    args_rows = [None] * yd.shape[0] if args_d is None else \
+        [cm.tree_map(lambda a, _k=k: a[_k], args_d) for k in range(yd.shape[0])]
 
     f0 = f(t0, y0, args)
+    specs = normalize_events(events)
+    ev = init_event_state(specs, m, dim, t0, y0, args)
+    td = y0.new_zeros((yd.shape[0], m))     # dt*_k of the IND event jump
     direction = torch.where(tf >= t0, 1.0, -1.0).to(dtype)
     if opts.h0 != 0.0 and _h0 is None:
         h_st = torch.full((m,), opts.h0, dtype=dtype, device=dev) * direction
@@ -791,12 +852,6 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
         q_acc = y0.new_zeros((m, 1 if quad_scalar else qshape[1]))
         if use_quad_sens:
             qd_acc = y0.new_zeros((yd.shape[0],) + tuple(q_acc.shape))
-            # stage tangent values off the dense tangent polynomial:
-            # yd(θ=c_i) = yd + Σ_q c_i^{q+1}·Qd_q (exact at the nodes)
-            cpow = torch.stack([c_nodes ** (q + 1) for q in range(s)])
-            args_rows = [None] * yd.shape[0] if args_d is None else \
-                [cm.tree_map(lambda a, _k=k: a[_k], args_d)
-                 for k in range(yd.shape[0])]
 
     mesh = None
     if mesh_size:
@@ -893,10 +948,11 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
                     return _kernel_lu_solve(_lu[:, p], b)
             else:
                 def solve_real(b, _lu=lu_r, _piv=piv_r):
-                    return lu_solve(_lu, _piv, b)
+                    return lu_solve(_lu, _piv, b, pivot=opts.pivoting)
 
                 def solve_cplx(p, b, _lu=lu_c, _piv=piv_c):
-                    return lu_solve(_lu[:, p], _piv[:, p], b)
+                    return lu_solve(_lu[:, p], _piv[:, p], b,
+                                    pivot=opts.pivoting)
 
         singular = active & ~fact_ok
 
@@ -997,6 +1053,10 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
         q_new = torch.einsum("msd,sq->mqd", z, p_mat)  # [M, θ-power q, D]
         q_poly = torch.where(accept[:, None, None], q_new, q_poly)
 
+        def interp(theta):                   # [M, T] -> [M, T, D]
+            tp = torch.stack([theta ** (q + 1) for q in range(s)], dim=-1)
+            return y[:, None, :] + torch.einsum("mtq,mqd->mtd", tp, q_new)
+
         if use_dense:
             inside, tpow = cm.dense_window(t_eval, t, h, accept, s)
             out_ys = torch.where(
@@ -1009,19 +1069,48 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
                     yd_old[:, :, None, :]
                     + torch.einsum("mtq,kmqd->kmtd", tpow, qd), out_sd)
 
+        # ---- events --------------------------------------------------------
+        ev, terminate, t_ev, y_ev, ev_idx = handle_events(
+            specs, ev, t, h, t_new, y_new, interp, accept, args, syncs)
+        if specs:
+            if use_dense:
+                out_ys = cm.mask_dense_after_event(out_ys, t_eval, terminate,
+                                                   t_ev, h)
+                if use_sens:
+                    out_sd = cm.mask_dense_after_event(out_sd, t_eval,
+                                                       terminate, t_ev, h)
+        # the fraction of the step up to t* (1 on lanes that go on)
+        th_e = torch.where(terminate, torch.clamp(
+            (t_ev - t) / torch.where(h == 0.0, 1.0, h), 0.0, 1.0), 1.0) \
+            if specs else torch.ones_like(h)
+        if use_sens and specs:
+            yd, dts = _event_tangent_jump(
+                specs, f, t_ev, y_ev, args, args_rows, mass, use_gmres,
+                opts.gmres_iters, yd_old, qd, th_e, ev_idx, terminate, yd)
+            td = torch.where(terminate[None, :], dts, td)
+
         # ---- running-cost quadrature --------------------------------------
         if use_quad:
-            # the step's own Radau quadrature on the converged stage values:
-            # q += h·Σ_i b_i·l(t + c_i·h, y + Z_i)
-            t_st = [t + c_nodes[i] * h for i in range(s)]
-            y_st = [y + z[:, i, :] for i in range(s)]
+            # the step's own Radau quadrature on the collocation polynomial:
+            # q += θ*·h·Σ_i b_i·l(t + θ*·c_i·h, y(θ*·c_i)); θ* = 1 off the
+            # event lanes, where y(c_i) = y + Z_i are the converged stages
+            th_i = th_e[:, None] * c_nodes[None, :]              # [M, s]
+            y_i = interp(th_i)
+            y_st = [torch.where(terminate[:, None], y_i[:, i], y + z[:, i, :])
+                    for i in range(s)]
+            t_st = [t + th_i[:, i] * h for i in range(s)]
             vals = torch.stack([qla(t_st[i], y_st[i], args)
                                 for i in range(s)], dim=1)      # [M, s, Q]
-            inc = h[:, None] * torch.einsum("s,msq->mq", b_vec, vals)
+            h_q = th_e * h
+            inc = h_q[:, None] * torch.einsum("s,msq->mq", b_vec, vals)
             q_acc = q_acc + torch.where(accept[:, None], inc, 0.0)
             if use_quad_sens:
+                # stage tangents off the tangent polynomial at the nodes:
+                # yd(θ) = yd + Σ_q θ^{q+1}·Qd_q
+                tpow_s = torch.stack([th_i ** (q + 1) for q in range(s)],
+                                     dim=1)                      # [M, q, s]
                 yd_st = yd_old[:, :, None, :] + torch.einsum(
-                    "kmqd,qs->kmsd", qd, cpow)                  # [K, M, s, D]
+                    "kmqd,mqs->kmsd", qd, tpow_s)
 
                 def ldot(i, k):
                     # tangent of the integrand: l_y·yd (+ l_θ·dθ_k)
@@ -1035,8 +1124,13 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
                 ld = torch.stack([torch.stack([ldot(i, k) for i in range(s)],
                                               dim=1)
                                   for k in range(yd.shape[0])])  # [K,M,s,Q]
-                inc_d = h[None, :, None] * torch.einsum("s,kmsq->kmq", b_vec,
-                                                        ld)
+                inc_d = h_q[None, :, None] * torch.einsum("s,kmsq->kmq",
+                                                          b_vec, ld)
+                if specs:
+                    # the moving endpoint: + l(t*, y*)·dt*_k
+                    inc_d = inc_d + torch.where(
+                        terminate[None, :, None],
+                        td[:, :, None] * qla(t_ev, y_ev, args)[None], 0.0)
                 qd_acc = qd_acc + torch.where(accept[None, :, None], inc_d,
                                               0.0)
 
@@ -1083,12 +1177,17 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
         status = torch.where(exceeded, cm.MAX_STEPS, status)
         status = torch.where(underflow, cm.STEP_UNDERFLOW, status)
         status = torch.where(stall, cm.NEWTON_STALL, status)
-        active = active & ~done & ~exceeded & ~underflow & ~stall
+        status = torch.where(terminate, cm.EVENT_TERMINATED, status)
+        active = active & ~done & ~exceeded & ~underflow & ~stall & ~terminate
 
-        t = torch.where(accept, t_new, t)
-        y = torch.where(accept[:, None], y_new, y)
-        t_lo = torch.where(accept, t_lo_new, t_lo)
-        y_lo = torch.where(accept[:, None], y_lo_new, y_lo)
+        # a lane stopped by an event rests at (t*, y*) with no remainder
+        t = torch.where(accept, torch.where(terminate, t_ev, t_new), t)
+        y = torch.where(accept[:, None],
+                        torch.where(terminate[:, None], y_ev, y_new), y)
+        t_lo = torch.where(accept & ~terminate, t_lo_new,
+                           torch.where(terminate, 0.0, t_lo))
+        y_lo = torch.where((accept & ~terminate)[:, None], y_lo_new,
+                           torch.where(terminate[:, None], 0.0, y_lo))
         f0 = f_new
         jac_m = jmat
         # deadzone lanes keep factors; everyone else refactors next time
@@ -1116,11 +1215,15 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
         t=t, y=y, status=status, stats=stats,
         ts=t_eval if use_dense else None,
         ys=out_ys if use_dense else None,
+        event_t=ev["event_t"] if specs else None,
+        event_y=ev["event_y"] if specs else None,
+        event_idx=ev["event_idx"] if specs else None,
         sens=yd if use_sens else None, mesh=mesh,
         sens_ys=out_sd if (use_sens and use_dense) else None,
         h_next=h_st,
         quad=scalar_q(q_acc) if use_quad else None,
-        sens_quad=scalar_q(qd_acc) if use_quad_sens else None)
+        sens_quad=scalar_q(qd_acc) if use_quad_sens else None,
+        sens_t=td if (use_sens and specs) else None)
 
 
 solve_radau.host_syncs = 0

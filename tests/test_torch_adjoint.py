@@ -10,7 +10,9 @@ whole batch, so both packages make the same trips). The reference's adjoint
 compiles slowly on the CPU, so the fast tier keeps eight cases and the others
 are marked ``slow``; JAX's caches are cleared after every test.
 
-(b) The mode restrictions and what is not ported yet raise. The port is held
+(b) The mode restrictions and what is not ported yet raise (the adjoint's
+terminal events are held against the reference in ``test_torch_events.py``,
+the rodas adjoint in ``test_torch_adjoint_rodas.py``). The port is held
 against itself (central differences, IND, the Function's plumbing) in
 ``test_torch_adjoint_fd.py``, which takes its cases from here.
 """
@@ -25,7 +27,8 @@ from janus_tpu.solve import Options as RefOptions
 from janus_tpu.solve.adjoint import radau_adjoint as ref_radau_adjoint
 from janus_tpu_torch.interop import options_from_jax
 from janus_tpu_torch.models.problems import vdp_jac, vdp_rhs
-from janus_tpu_torch.solve import Options, radau_adjoint, solve_adjoint
+from janus_tpu_torch.solve import (Event, Options, radau_adjoint,
+                                   solve_adjoint)
 from test_torch_mol_cases import line_case
 
 torch.set_num_threads(1)
@@ -229,15 +232,24 @@ def test_mode_restrictions_raise():
 @pytest.mark.parametrize("what", ["events", "variable-stages", "radaup",
                                   "rodas", "dopri5"])
 def test_unported_adjoints_raise(what):
+    """What is not ported raises NotImplementedError; of what is ported
+    (events, rodas) the restrictions the reference keeps raise ValueError."""
     y0 = torch.tensor([[2.0, 0.0]], dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        if what == "events":
+    if what == "events":       # ported: non-terminal events have no gradient
+        with pytest.raises(ValueError, match="terminal"):
             radau_adjoint(vdp_rhs, (0.0, 1.0), y0, args=5.0,
-                          events=lambda t, y, a: y[:, 0])
-        elif what == "variable-stages":
-            radau_adjoint(vdp_rhs, (0.0, 1.0), y0, args=5.0,
-                          options=Options(min_stages=3, max_stages=7))
-        else:
-            solve_adjoint(vdp_rhs, (0.0, 1.0), y0, method=what, args=5.0)
+                          events=Event(lambda t, y, a: y[:, 0],
+                                       terminal=False))
+    elif what == "rodas":      # ported: the kernels K1/K2 have no backward
+        with pytest.raises(ValueError, match="no backward"):
+            solve_adjoint(vdp_rhs, (0.0, 1.0), y0, method=what, args=5.0,
+                          options=Options(kernel_lu=True, pivoting=False))
+    else:
+        with pytest.raises(NotImplementedError, match="not ported"):
+            if what == "variable-stages":
+                radau_adjoint(vdp_rhs, (0.0, 1.0), y0, args=5.0,
+                              options=Options(min_stages=3, max_stages=7))
+            else:
+                solve_adjoint(vdp_rhs, (0.0, 1.0), y0, method=what, args=5.0)
     with pytest.raises(ValueError, match="no reverse mode"):
         solve_adjoint(vdp_rhs, (0.0, 1.0), y0, method="grk4t", args=5.0)

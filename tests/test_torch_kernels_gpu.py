@@ -39,6 +39,16 @@ relative to their largest entry: the D=128 line's gradient (4 lanes,
 K1/K2 (``kernel_lu=True``; K1 and K2 must have been launched), with the
 interpolant of a ``dense=`` solve to 1e-9 and its mesh to 1e-7 (step sizes
 amplify the two devices' rounding, as they do between the two packages).
+
+RODAS4, its discrete adjoint and events (``janus_tpu_torch.bench.rodas``,
+chip_smoke's phase 15) on the card: solve_rodas with kernel_lu=True launches
+K1 and K2 and equals the plain pivot-free LU on the card to 1e-12 (the
+kernels equal their twins to the bit; the plain LU's batched ops may round
+otherwise), tangents too; bench.py's rodas-adjoint gradient on 64 lanes
+finite, the transpose oracle to 1e-10 and d/dμ against central differences
+to 1e-4, and 4 lanes against the CPU to 1e-7; a terminal event on 256
+Radau5 lanes: event_t, event_idx and status against the CPU (event_t to
+1e-8 relative).
 """
 
 import numpy as np
@@ -46,6 +56,7 @@ import pytest
 import torch
 
 from janus_tpu_torch.bench import mol
+from janus_tpu_torch.bench import rodas as rodas_probe
 from janus_tpu_torch.interop import tree_to_torch
 from janus_tpu_torch.linalg import gmres as gm
 from janus_tpu_torch.models.problems import robertson_rhs, vdp_rhs
@@ -292,3 +303,45 @@ def test_vdp_gradient_through_kernels_on_card_matches_cpu():
     assert all(bool(torch.isfinite(a).all()) for a in out["cuda"])
     for n, tol in zip(names, (1e-10, 1e-8, 1e-8, 1e-9, 1e-7)):
         assert errs[n] <= tol, errs
+
+
+@pytest.mark.gpu
+def test_rodas_kernels_on_card_match_plain_lu():
+    dev = _card()
+    smalllu.reset_launch_counts()
+    got = rodas_probe.forward_solve(dev, True, m=1024)
+    assert smalllu.lu_factor_t.launches > 0 and smalllu.lu_solve_t.launches > 0
+    ref = rodas_probe.forward_solve(dev, False, m=1024)
+    assert bool((got.status == 1).all())
+    for k in ("naccept", "nreject"):
+        assert torch.equal(got.stats[k], ref.stats[k]), k
+    for k in ("y", "sens"):
+        a, b = getattr(got, k), getattr(ref, k)
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-12, k
+
+
+@pytest.mark.gpu
+def test_rodas_adjoint_on_card_checks():
+    dev = _card()
+    g = rodas_probe.gradient(64, torch.float64, dev)
+    assert all(x.is_cuda and bool(torch.isfinite(x).all()) for x in g[1:])
+    errs = rodas_probe.check_gradient(g, torch.float64, dev)
+    assert errs["transpose"] <= 1e-10 and errs["fd_mu"] <= 1e-4, errs
+    got = rodas_probe.gradient(4, torch.float64, dev)
+    ref = rodas_probe.gradient(4, torch.float64, torch.device("cpu"))
+    for a, b in zip(got[1:], ref[1:]):
+        assert float((a.cpu() - b).abs().max() / b.abs().max()) <= 1e-7
+
+
+@pytest.mark.gpu
+def test_events_on_card_match_cpu():
+    dev = _card()
+    got = rodas_probe.event_solve(256, dev)
+    ref = rodas_probe.event_solve(256, torch.device("cpu"))
+    assert torch.equal(got.event_idx.cpu(), ref.event_idx)
+    assert torch.equal(got.status.cpu(), ref.status)
+    hit = ref.event_idx >= 0
+    assert 0 < int(hit.sum()) < 256
+    rel = (got.event_t.cpu()[hit] - ref.event_t[hit]).abs() \
+        / ref.event_t[hit].abs()
+    assert float(rel.max()) <= 1e-8

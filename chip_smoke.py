@@ -98,7 +98,23 @@ Phases, one line each (everything is made from fixed seeds):
     factors E and K2 does every stage and tangent solve: their launch counts
     (``launches_rodas`` in the kernels line), y and sens within 1e-5 of the
     plain LU; a terminal event on 65,536 Radau5 lanes of heterogeneous mu:
-    event_t and event_idx of 4 lanes against the CPU.
+    event_t and event_idx of 4 lanes against the CPU;
+16. the explicit family, its discrete adjoint and the rest of the Radau
+    surface (janus_tpu_torch.bench.dopri, its shortest check): dopri5 on
+    65,536 Van der Pol lanes, mu = logspace(-1, 0.5), t in [0, 10], rtol
+    1e-7 (the reference's dopri test widened), every lane SUCCESS, K1-K4
+    launched 0 times, 8 lanes against scipy's RK45 (within 1e-5 relative +
+    1e-6); the neural-ODE gradient of examples/neural_ode_dopri.py (MLP
+    [2, 64, 64, 2], 8 t_eval samples, dopri_adjoint) at 8,192 lanes in
+    f64, finite, dL/dy0 of 4 of its lanes against the CPU's gradient of
+    those lanes alone, and the weight gradient of a 4-lane batch against
+    the CPU (each 1e-7); the Radau9 headline lanes
+    with kernel_lu=True, constant step_args rows and record_steps=64 equal
+    to the plain solve to the bit with the same K1/K2 launches
+    (``launches_step_args`` in the kernels line); radau_hvp on 1,024 VdP
+    lanes whose augmented D=4 forward goes through K1/K2
+    (``launches_hvp``), 3 lanes against central differences of
+    radau_adjoint gradients.
 
 Then one JSON line with the kernels' records, nvidia-smi's line, and last
 {"ok": true, "device": {...}}. Any failed check raises; no phase's failure
@@ -143,6 +159,7 @@ def main():
     sys.path.insert(0, here)
 
     from janus_tpu_torch import ops as janus_ops
+    from janus_tpu_torch.bench import dopri as dopri_probe
     from janus_tpu_torch.bench import kernels as bench
     from janus_tpu_torch.bench import mol
     from janus_tpu_torch.bench import rodas as rodas_probe
@@ -604,6 +621,13 @@ def main():
     rodas_launches = rodas_report["forward"]["launches"]
     print(f"[phase 15] {time.perf_counter() - t15:.1f} s", flush=True)
 
+    # ---- 16. dopri, its adjoint, step_args and radau_hvp -----------------------
+    t16 = time.perf_counter()
+    dopri_report = dopri_probe.run(dev, smoke=True)  # raises DopriCheckFailed
+    route = {"launches_step_args": dopri_report["step_args"]["launches"],
+             "launches_hvp": dopri_report["hvp"]["launches"]}
+    print(f"[phase 16] {time.perf_counter() - t16:.1f} s", flush=True)
+
     k1, k1p, k2, k2p, extra = times[(torch.float64, 4)]
     (b1, by1, lib1), (b2, by2, lib2) = (extra["lu_factor_t"],
                                         extra["lu_solve_t"])
@@ -615,7 +639,8 @@ def main():
          "ms": k1, "plain_ms": k1p, "bound_ms": b1, "bound_by": by1,
          "library_ms": lib1, "shape": f"D=4 M={M} float64",
          "launches_vdp_adjoint": adj_launches["K1"],
-         "launches_rodas": rodas_launches["K1"]},
+         "launches_rodas": rodas_launches["K1"],
+         **{k: v["K1"] for k, v in route.items()}},
         {"name": "lu_solve_t", "route": "cuda",
          "source": "janus_tpu_torch/csrc/smalllu.cu",
          "replaces": "janus_tpu/ops/smalllu_pallas.py:115",
@@ -623,7 +648,8 @@ def main():
          "ms": k2, "plain_ms": k2p, "bound_ms": b2, "bound_by": by2,
          "library_ms": lib2, "shape": f"D=4 M={M} float64",
          "launches_vdp_adjoint": adj_launches["K2"],
-         "launches_rodas": rodas_launches["K2"]},
+         "launches_rodas": rodas_launches["K2"],
+         **{k: v["K2"] for k, v in route.items()}},
         {"name": "linsolve_fused", "route": "cuda",
          "source": "janus_tpu_torch/csrc/smalllu.cu",
          "replaces": "janus_tpu/ops/smalllu_pallas.py:55",

@@ -22,8 +22,14 @@ quadratures on ``solve_radau``; the continuous adjoint
 ``solve.radau_adjoint`` (``solve/adjoint.py``), a ``torch.autograd.Function``
 whose backward sweeps the forward solve's accepted-step mesh, plain torch too;
 events (``solve/events.py``) on solve_radau, solve_rodas and radau_adjoint;
-and RODAS4 (``solve/rodas.py``, through K1/K2 under ``kernel_lu``) with its
-discrete adjoint ``solve.rodas_adjoint`` (``solve/adjoint_rodas.py``).
+RODAS4 (``solve/rodas.py``, through K1/K2 under ``kernel_lu``) with its
+discrete adjoint ``solve.rodas_adjoint`` (``solve/adjoint_rodas.py``); the
+explicit Dormand–Prince pairs (``solve/dopri.py``, ``solve_ivp``'s default
+method) with their discrete adjoint ``solve.dopri_adjoint`` (the
+neural-ODE training path, ``models/neural.py``), both discrete adjoints on
+``solve/discrete.py``; ``step_args=``, ``record_steps`` (``diag/record.py``)
+and ``qr_fallback`` (``linalg/qr.py``) on the Radau solve, and its
+Hessian-vector products ``solve.radau_hvp``.
 
 Precision: f32 contractions must not be demoted to TF32 on the card (a
 demoted contraction stalls the f32 Newton) — the role of the reference's

@@ -28,6 +28,13 @@ def _mu(args, y):
     return mu.to(y.dtype) if isinstance(mu, torch.Tensor) else mu
 
 
+def harmonic_rhs(t, y, args):
+    """y = [q, v]: q' = v, v' = −ω² q. args: ω (scalar, [M], or {'omega'})."""
+    omega = args["omega"] if isinstance(args, dict) else args
+    q, v = y[..., 0], y[..., 1]
+    return torch.stack([v, -(omega ** 2) * q], dim=-1)
+
+
 def vdp_rhs(t, y, args):
     """Stiff Van der Pol: y0' = y1, y1' = μ((1−y0²)y1) − y0. args: μ [M] or scalar."""
     mu = _mu(args, y)

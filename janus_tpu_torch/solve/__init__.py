@@ -1,7 +1,9 @@
-"""Lockstep masked adaptive steppers (the ported subset: fixed-stage radau,
-with the dense stage LU or the matrix-free GMRES / tridiagonal stage solvers,
-mass matrices, dense output, t_eval, quadratures and events; its continuous
-adjoint; RODAS4 and its discrete adjoint; and the fused one-kernel Radau5
+"""Lockstep masked adaptive steppers (the ported subset: the explicit
+Dormand–Prince pairs and their discrete adjoint; fixed-stage radau, with the
+dense stage LU or the matrix-free GMRES / tridiagonal stage solvers, mass
+matrices, dense output, t_eval, quadratures, events, step_args, step
+recording and the QR fallback; its continuous adjoint and Hessian-vector
+products; RODAS4 and its discrete adjoint; and the fused one-kernel Radau5
 step)."""
 
 from __future__ import annotations
@@ -19,8 +21,11 @@ from janus_tpu_torch.solve.common import (
     PARAMS_EXHAUSTED,
 )
 from janus_tpu_torch.solve.adjoint import radau_adjoint
+from janus_tpu_torch.solve.adjoint_dopri import dopri_adjoint
 from janus_tpu_torch.solve.adjoint_rodas import rodas_adjoint
+from janus_tpu_torch.solve.dopri import TABLEAUS, solve_erk
 from janus_tpu_torch.solve.events import Event
+from janus_tpu_torch.solve.hvp import radau_hvp
 from janus_tpu_torch.solve.options import Options
 from janus_tpu_torch.solve.radau import solve_radau
 from janus_tpu_torch.solve.radau_fused import solve_radau_fused
@@ -33,6 +38,8 @@ _RADAU_STAGES = {"radau": None, "radau5": 3, "radau9": 5, "radau13": 7}
 # solve_ivp RAISES on an unsupported feature instead of dropping it.
 FEATURES = {
     #                jac    mass   events t_eval
+    "dopri5":       (False, False, True,  True),
+    "dopri853":     (False, False, True,  True),
     "radau":        (True,  True,  True,  True),
     "radau_fused":  (False, False, False, False),
     "rodas":        (True,  True,  True,  True),
@@ -49,8 +56,8 @@ _ALIASES = {
 
 # the reference's methods that are not ported yet -> their ROADMAP.md Queue 1
 # item
-_UNPORTED = {"dopri5": 14, "dopri853": 14, "bdf": 15, "seulex": 16,
-             "radaup": 17, "bdf2": 18, "grk4t": 18}
+_UNPORTED = {"bdf": 15, "seulex": 16, "radaup": 17, "bdf2": 18,
+             "grk4t": 18}
 
 
 def _canonical(method: str) -> str:
@@ -96,7 +103,9 @@ def solve_ivp(f: Callable, tspan, y0, method: str = "dopri5", args: Any = None,
               **opt_kw) -> Solution:
     """Batched initial-value-problem solve, as ``janus_tpu.solve.solve_ivp``.
 
-    Ported methods: 'radau' (stage count from options.min_stages),
+    Ported methods: 'dopri5' (the default) and 'dopri853' (aliases 'rk45',
+    'dop853': explicit, with t_eval=, events=, quad=, dense=, step_args=);
+    'radau' (stage count from options.min_stages),
     'radau5'/'radau9'/'radau13' (s = 3/5/7), fixed stage count, with
     mass= ([D, D] or [M, D, D], singular allowed) and, by
     Options(stage_solver='gmres'|'tridiag', precond='tridiag'|'lines'|
@@ -132,19 +141,21 @@ def solve_ivp(f: Callable, tspan, y0, method: str = "dopri5", args: Any = None,
                          " is supported by the 'radau'/'radaup' methods, "
                          "'seulex', 'rodas' and 'bdf'; use torch.func.jvp "
                          "through the solve otherwise")
-    if quad is not None and canonical not in ("radau", "rodas"):
+    if quad is not None and canonical not in ("radau", "rodas", "dopri5",
+                                              "dopri853"):
         raise ValueError("quad= (running-cost quadratures) is supported by "
                          "the fixed-stage 'radau' methods (collocation-"
                          "weight rule, incl. sens_quad), 'radaup', 'rodas',"
                          " 'seulex', 'bdf' and 'dopri5'/'dopri853' (Gauss-"
                          "Legendre on the dense interpolant); integrate "
                          "the cost as an extra state otherwise")
-    if dense and canonical not in ("radau", "rodas"):
+    if dense and canonical not in ("radau", "rodas", "dopri5", "dopri853"):
         raise ValueError("dense= (post-hoc Solution.interpolate) is "
                          "supported by the 'radau'/'radaup' methods, "
                          "'rodas', 'seulex', 'bdf' and "
                          "'dopri5'/'dopri853'; use t_eval= otherwise")
-    if step_args is not None and canonical not in ("radau", "rodas"):
+    if step_args is not None and canonical not in ("radau", "rodas",
+                                                   "dopri5", "dopri853"):
         raise ValueError("step_args= (per-accepted-step parameter slabs, "
                          "the reference's theta/nparams_step semantics) is "
                          "supported by the one-step adaptive methods "
@@ -153,6 +164,10 @@ def solve_ivp(f: Callable, tspan, y0, method: str = "dopri5", args: Any = None,
                          "assumes a smooth f across steps); use "
                          "models.controls time-indexed schedules or "
                          "solve.fixed.odeint_fixed(step_args=) otherwise")
+    if canonical in TABLEAUS:
+        return solve_erk(TABLEAUS[canonical], f, t0, tf, y0, args, options,
+                         t_eval, events=events, step_args=step_args,
+                         quad=quad, dense=dense, device=device)
     if canonical == "radau_fused":
         return solve_radau_fused(f, t0, tf, y0, args, options, device)
     if canonical == "rodas":
@@ -176,8 +191,7 @@ def solve_ivp(f: Callable, tspan, y0, method: str = "dopri5", args: Any = None,
 
 
 # method -> the Queue 1 item of ROADMAP.md that brings its adjoint
-_ADJOINT_ITEMS = {"radaup": 17, "seulex": 16, "bdf": 15, "dopri5": 14,
-                  "dopri853": 14}
+_ADJOINT_ITEMS = {"radaup": 17, "seulex": 16, "bdf": 15}
 
 
 def solve_adjoint(f: Callable, tspan, y0, method: str = "radau",
@@ -192,10 +206,12 @@ def solve_adjoint(f: Callable, tspan, y0, method: str = "radau",
     method: 'radau' (and 'radau5'/'radau9'/'radau13'; the continuous
     adjoint, which also takes events=, cost=, n_alg=, checkpoints=, mass=,
     jac=: see ``radau_adjoint``) and 'rodas' (the discrete adjoint, which
-    takes events=, cost=, n_alg=, mass=, jac=: see ``rodas_adjoint``). With
-    terminal events= both return (y*, t*), or (ys, y*, t*) with t_eval=.
+    takes events=, cost=, n_alg=, mass=, jac=: see ``rodas_adjoint``) and
+    'dopri5'/'dopri853' (the discrete adjoint of the explicit family, the
+    neural-ODE training path; events=, cost=: see ``dopri_adjoint``). With
+    terminal events= they return (y*, t*), or (ys, y*, t*) with t_eval=.
     Aliases follow solve_ivp's table. The reference's other families
-    ('radaup', 'seulex', 'bdf', 'dopri5', 'dopri853') raise
+    ('radaup', 'seulex', 'bdf') raise
     NotImplementedError until their adjoints are ported (ROADMAP.md Queue
     1); a method with no reverse mode raises ValueError."""
     method = method.lower()
@@ -210,21 +226,27 @@ def solve_adjoint(f: Callable, tspan, y0, method: str = "radau",
     if canonical == "rodas":
         return rodas_adjoint(f, tspan, y0, args=args, options=options,
                              t_eval=t_eval, **kw)
+    if canonical in TABLEAUS:
+        return dopri_adjoint(f, tspan, y0, args=args, options=options,
+                             t_eval=t_eval, method=canonical, **kw)
     if canonical in _ADJOINT_ITEMS:
         raise NotImplementedError(
             f"solve_adjoint: the adjoint of method {method!r} is not ported "
             f"to janus_tpu_torch yet (ROADMAP.md Queue 1, item "
-            f"{_ADJOINT_ITEMS[canonical]}); ported: 'radau', 'rodas'")
+            f"{_ADJOINT_ITEMS[canonical]}); ported: 'radau', 'rodas', "
+            "'dopri5', 'dopri853'")
     raise ValueError(
         f"solve_adjoint: no reverse mode for method {method!r}; available: "
-        "radau (continuous), rodas (discrete). Forward sensitivities: "
+        "radau (continuous), rodas and dopri5/dopri853 (discrete). Forward "
+        "sensitivities: "
         "solve_ivp(tangents=)")
 
 
 __all__ = [
-    "solve_ivp", "solve_radau", "solve_radau_fused", "solve_rodas",
-    "Solution", "Options", "Event", "FEATURES", "radau_adjoint",
-    "rodas_adjoint", "solve_adjoint",
+    "solve_ivp", "solve_erk", "solve_radau", "solve_radau_fused",
+    "solve_rodas", "Solution", "Options", "Event", "FEATURES",
+    "radau_adjoint", "radau_hvp", "rodas_adjoint", "dopri_adjoint",
+    "solve_adjoint",
     "RUNNING", "SUCCESS", "MAX_STEPS", "STEP_UNDERFLOW", "NEWTON_STALL",
     "EVENT_TERMINATED", "PARAMS_EXHAUSTED",
 ]

@@ -1,5 +1,5 @@
-"""Shared machinery for the lockstep masked solvers (the subset radau and
-rodas need).
+"""Shared machinery for the lockstep masked solvers (the subset radau,
+rodas and dopri need).
 
 The whole batch advances in one Python loop and every per-trajectory
 decision is a ``torch.where`` select. The device is the one ``y0`` lies on;
@@ -245,6 +245,34 @@ def initial_step(f, t0, y0, f0, tf, order: int, rtol, atol, args, max_step):
     h = torch.minimum(torch.minimum(100.0 * h0, h1),
                       torch.clamp(torch.abs(tf - t0), max=max_step))
     return h * direction
+
+
+def make_slab_selector(step_args, y0):
+    """Per-accepted-step parameter slabs (``step_args=``): every leaf of the
+    tree shares leading axis S. Returns (S, slab_at) where ``slab_at(nacc
+    [M])`` picks each lane's own row nacc (clamped to S−1: an exhausted
+    lane stays finite and is failed by the caller) by a gather. A leaf
+    whose second axis equals the batch size M is a per-lane table [S, M,
+    ...]. Leaves are cast to y0's dtype on y0's device."""
+    m = y0.shape[0]
+    slabs = tree_map(lambda a: like(a, y0), step_args)
+    leaves = tree_leaves(slabs)
+    n_slabs = leaves[0].shape[0]
+    if any(leaf.shape[0] != n_slabs for leaf in leaves):
+        raise ValueError("step_args leaves must share leading axis S")
+    lanes = torch.arange(m, device=y0.device)
+
+    def slab_at(nacc):
+        row = torch.clamp(nacc, 0, n_slabs - 1).to(torch.int64)
+
+        def pick(leaf):
+            if leaf.ndim >= 2 and leaf.shape[1] == m:
+                return leaf[row, lanes]
+            return leaf.index_select(0, row)
+
+        return tree_map(pick, slabs)
+
+    return n_slabs, slab_at
 
 
 def zero_stats(m: int, names, device) -> Dict[str, torch.Tensor]:

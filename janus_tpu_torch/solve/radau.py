@@ -51,10 +51,12 @@ from janus_tpu_torch.control.precond import (blocks_of_jacobian,
                                              tridiag_bands)
 from janus_tpu_torch.control.precond import \
     guarded_block_lu as _guarded_block_lu
+from janus_tpu_torch.diag.record import init_dyn, record_step
 from janus_tpu_torch.linalg.gmres import (gmres_batched, gmres_dense_solve,
                                           mass_matvec, tridiag_bands_of,
                                           tridiag_solve_auto,
                                           tridiag_solve_complex_auto)
+from janus_tpu_torch.linalg.qr import qr_factor, qr_solve
 from janus_tpu_torch.linalg.smalllu import lu_factor, lu_ok, lu_solve
 from janus_tpu_torch.ops.smalllu import lu_factor_t, lu_solve_t
 from janus_tpu_torch.solve import common as cm
@@ -665,17 +667,55 @@ def _event_tangent_jump(specs, f, t_ev, y_ev, args, args_rows, mass,
     return torch.where(terminate[None, :, None], sens_sel, yd), dts_sel
 
 
-_LATER = {
-    "step_args": "the rest of the radau features (step_args)",
-    "record_steps": "the rest of the radau features (step recording)",
-    "qr_fallback": "the rest of the radau features (QR fallback)",
-}
+def _qr_reg_ok(r):
+    """Per-lane regularity of a Householder R factor (the lu_ok twin)."""
+    diag = torch.abs(torch.diagonal(r, dim1=-2, dim2=-1))
+    scale = torch.abs(r).amax(dim=(-2, -1))
+    tol = torch.finfo(r.dtype).eps * r.shape[-1] * 32.0
+    return torch.isfinite(r).all(dim=-1).all(dim=-1) & \
+        (diag.amin(dim=-1) > tol * torch.clamp(scale, min=1e-30))
 
 
-def _not_ported(name):
-    raise NotImplementedError(
-        f"solve_radau: {name}= is not ported to janus_tpu_torch yet; it "
-        f"comes with {_LATER[name]} (ROADMAP.md Queue 1, item 10b)")
+def _qr_factor_all(tab, h, jac, mass=None):
+    """Householder QR of every stage iteration matrix, the per-lane rescue
+    of a broken LU (Options.qr_fallback). Returns (vs_r, r_r [M, D, D],
+    vs_c, r_c [M, P, 2D, 2D], ok [M])."""
+    a_real, blocks = _build_iter_matrices(tab, h, jac, mass)
+    vs_r, r_r = qr_factor(a_real)
+    ok = _qr_reg_ok(r_r)
+    vs_cs, r_cs = [], []
+    for block in blocks:
+        vs_c, r_c = qr_factor(block)
+        ok = ok & _qr_reg_ok(r_c)
+        vs_cs.append(vs_c)
+        r_cs.append(r_c)
+    dim = jac.shape[-1]
+    if vs_cs:
+        return (vs_r, r_r, torch.stack(vs_cs, dim=1),
+                torch.stack(r_cs, dim=1), ok)
+    vs_c = jac.new_zeros(jac.shape[:-2] + (0, 2 * dim, 2 * dim))
+    return vs_r, r_r, vs_c, vs_c, ok
+
+
+def _with_qr(solve_real, solve_cplx, use_qr, vs_r, r_r, vs_c, r_c):
+    """The stage solvers with the lanes in use_qr [M] solved through their
+    Householder factors instead of the LU."""
+    def real(b):
+        return torch.where(use_qr[:, None], qr_solve(vs_r, r_r, b),
+                           solve_real(b))
+
+    def cplx(p, b):
+        return torch.where(use_qr[:, None], qr_solve(vs_c[:, p], r_c[:, p], b),
+                           solve_cplx(p, b))
+
+    return real, cplx
+
+
+STEP_ARGS_GUARD = ("step_args= does not compose with tangents=, the "
+                   "adjoint's mesh (_mesh_size) or dense= (slab rows are "
+                   "step-indexed and a replay has no slab index); seed the "
+                   "slab leaves through torch.func.jvp, or use time-indexed "
+                   "controls")
 
 
 def solve_radau(f: Callable, t0, tf, y0, args=None,
@@ -744,12 +784,11 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
     if use_gmres and jac is not None:
         raise ValueError("stage_solver='gmres' is matrix-free (J·v by jvp, "
                          "3-probe tridiagonal preconditioner); drop jac=")
-    if step_args is not None:
-        _not_ported("step_args")
-    for name, flag in (("record_steps", opts.record_steps),
-                       ("qr_fallback", opts.qr_fallback)):
-        if flag:
-            _not_ported(name)
+    use_slabs = step_args is not None
+    if use_slabs and (tangents is not None or args_tangents is not None
+                      or _mesh_size or dense):
+        raise ValueError(STEP_ARGS_GUARD)
+    use_qr_fb = opts.qr_fallback and not use_gmres
     # dense= is the public face of the adjoint's step-mesh rings: store every
     # accepted step's collocation polynomial for Solution.interpolate()
     mesh_size = max(int(_mesh_size), int(dense))
@@ -805,7 +844,16 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
     args_rows = [None] * yd.shape[0] if args_d is None else \
         [cm.tree_map(lambda a, _k=k: a[_k], args_d) for k in range(yd.shape[0])]
 
-    f0 = f(t0, y0, args)
+    if use_slabs:
+        # a lane's k-th accepted-step attempt evaluates every stage, the
+        # Jacobian and the error estimate's f under slab row k, as f(t, y,
+        # (args, slab_k)); events and quad see the plain args
+        n_slabs, slab_at = cm.make_slab_selector(step_args, y0)
+        args0 = (args, slab_at(torch.zeros((m,), dtype=torch.int32,
+                                           device=dev)))
+    else:
+        args0 = args
+    f0 = f(t0, y0, args0)
     specs = normalize_events(events)
     ev = init_event_state(specs, m, dim, t0, y0, args)
     td = y0.new_zeros((yd.shape[0], m))     # dt*_k of the IND event jump
@@ -814,7 +862,7 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
         h_st = torch.full((m,), opts.h0, dtype=dtype, device=dev) * direction
     elif mass is None:
         h_st = cm.initial_step(f, t0, y0, f0, tf, s, opts.rtol, opts.atol,
-                               args, opts.max_step)
+                               args0, opts.max_step)
     else:
         # Hairer's hinit treats f0 as a derivative, which is wrong for the
         # algebraic rows of a singular-mass system: start small and let the
@@ -893,6 +941,13 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
     q_poly = zeros(m, s, dim)
     h_prev = torch.ones((m,), dtype=dtype, device=dev)
     have_sol = zeros(m, dt=torch.bool)
+    dyn = init_dyn(m, opts.record_steps, y0,
+                   dim if opts.record_states else 0)
+    if use_qr_fb:
+        qr_vs_r, qr_r_r = zeros(m, dim, dim), zeros(m, dim, dim)
+        qr_vs_c = zeros(m, npair, 2 * dim, 2 * dim)
+        qr_r_c = zeros(m, npair, 2 * dim, 2 * dim)
+        use_qr = zeros(m, dt=torch.bool)
     already_done = t0 == tf
     active = ~already_done
     status = torch.where(already_done, cm.SUCCESS, cm.RUNNING).to(torch.int8)
@@ -913,9 +968,16 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
         h = torch.where(last, remaining, h_st)
         h = torch.where(h == 0.0, eps * dir0, h)
 
+        if use_slabs:
+            exhausted = active & (stats["naccept"] >= n_slabs)
+            fa = (args, slab_at(stats["naccept"]))
+        else:
+            exhausted = None
+            fa = args
+
         # ---- Jacobian refresh (lanes that need it) -----------------------
         needj = need_jac & active
-        jnew = jac_fn(t, y, args)
+        jnew = jac_fn(t, y, fa)
         jmat = torch.where(needj.reshape((m,) + (1,) * (jnew.ndim - 1)),
                            jnew, jac_m)
         current_jac = current_jac | needj
@@ -929,7 +991,7 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
             fact_ok = torch.isfinite(jmat).flatten(1).all(dim=1)
             # rebuilt every attempt from the CURRENT h (no factors to reuse)
             solve_real, solve_cplx = _gmres_stage_solver(
-                tab, f, t_lin, y_lin, args, jmat, h, mass, gmres_iters,
+                tab, f, t_lin, y_lin, fa, jmat, h, mass, gmres_iters,
                 precond=opts.precond, block=opts.precond_block)
         else:
             lr, pr, lc, pc, ok = _factorize(tab, h, jmat, mass, opts.pivoting,
@@ -954,6 +1016,34 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
                     return lu_solve(_lu[:, p], _piv[:, p], b,
                                     pivot=opts.pivoting)
 
+        if use_qr_fb:
+            # per-lane QR rescue of a broken LU: one host read an attempt
+            # (did a fresh factorization fail; does a lane still solve by
+            # QR), where the reference gates with lax.cond
+            lu_fail = needf & ~fact_ok
+            any_fail, any_kept = torch.stack(
+                [lu_fail.any(), (use_qr & ~needf).any()]).tolist()
+            syncs.count += 1
+            if any_fail:
+                vs_r, r_r, vs_c, r_c, qok = _qr_factor_all(tab, h, jmat, mass)
+                qr_vs_r = torch.where(lu_fail[:, None, None], vs_r, qr_vs_r)
+                qr_r_r = torch.where(lu_fail[:, None, None], r_r, qr_r_r)
+                qr_vs_c = torch.where(lu_fail[:, None, None, None], vs_c,
+                                      qr_vs_c)
+                qr_r_c = torch.where(lu_fail[:, None, None, None], r_c,
+                                     qr_r_c)
+                qr_new = lu_fail & qok
+            else:
+                qr_new = torch.zeros_like(lu_fail)
+            # freshly factored lanes take this factorization's mode; the
+            # others keep the mode of their live factors
+            use_qr = torch.where(needf, qr_new, use_qr)
+            fact_ok = fact_ok | qr_new
+            if any_fail or any_kept:
+                solve_real, solve_cplx = _with_qr(
+                    solve_real, solve_cplx, use_qr, qr_vs_r, qr_r_r,
+                    qr_vs_c, qr_r_c)
+
         singular = active & ~fact_ok
 
         # ---- Newton warm start from previous collocation polynomial ------
@@ -970,9 +1060,11 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
         if use_index:
             scale_n = scale_n / torch.abs(h)[:, None] ** ind_exp[None, :]
         run_newton = active & fact_ok
+        if use_slabs:
+            run_newton = run_newton & ~exhausted
         z, nconv, niter, nfev, rate = _newton(
             tab, f, t, y, h, z0, scale_n, newton_tol, solve_real, solve_cplx,
-            run_newton, max_iter, args, syncs, mass=mass)
+            run_newton, max_iter, fa, syncs, mass=mass)
         conv = run_newton & nconv
         newton_fail = run_newton & ~nconv
 
@@ -991,7 +1083,9 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
             y_new, y_lo_new = y + z[:, -1, :], y_lo
             t_new, t_lo_new = t + h, t_lo
         ze = mdot(torch.einsum("s,msd->md", e_vec, z) / h[:, None])
-        err1 = solve_real(f0 + ze)
+        # f0 was evaluated under the previous step's slab row: again under
+        # this attempt's row
+        err1 = solve_real((f(t, y, fa) if use_slabs else f0) + ze)
         scale_e = opts.atol + opts.rtol * torch.maximum(torch.abs(y),
                                                         torch.abs(y_new))
         if use_index:
@@ -1003,7 +1097,7 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
         if use_gmres and not syncs.any(refine):
             enorm = enorm1
         else:
-            err2 = solve_real(f(t, y + err1, args) + ze)
+            err2 = solve_real(f(t, y + err1, fa) + ze)
             en2 = cm.rms_norm(err2, scale_e)
             enorm = torch.where(refine, torch.where(torch.isfinite(en2), en2,
                                                     1e10), enorm1)
@@ -1036,7 +1130,7 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
         fac_acc = torch.where(deadzone, 1.0, fac_acc)
 
         # ---- new f at accepted points -------------------------------------
-        f_new = torch.where(accept[:, None], f(t_new, y_new, args), f0)
+        f_new = torch.where(accept[:, None], f(t_new, y_new, fa), f0)
 
         # ---- internal-differentiation tangent sweep -----------------------
         if use_sens:
@@ -1134,6 +1228,10 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
                 qd_acc = qd_acc + torch.where(accept[None, :, None], inc_d,
                                               0.0)
 
+        dyn = record_step(dyn, run_newton | singular, t, h, enorm, niter,
+                          accept, y=torch.where(accept[:, None], y_new, y)
+                          if opts.record_states else None)
+
         if mesh is not None:
             # record the accepted step into slot naccept: each slot is
             # written once, by index (no host sync); steps past the capacity
@@ -1177,6 +1275,9 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
         status = torch.where(exceeded, cm.MAX_STEPS, status)
         status = torch.where(underflow, cm.STEP_UNDERFLOW, status)
         status = torch.where(stall, cm.NEWTON_STALL, status)
+        if use_slabs:
+            status = torch.where(exhausted, cm.PARAMS_EXHAUSTED, status)
+            active = active & ~exhausted
         status = torch.where(terminate, cm.EVENT_TERMINATED, status)
         active = active & ~done & ~exceeded & ~underflow & ~stall & ~terminate
 
@@ -1217,7 +1318,7 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
         ys=out_ys if use_dense else None,
         event_t=ev["event_t"] if specs else None,
         event_y=ev["event_y"] if specs else None,
-        event_idx=ev["event_idx"] if specs else None,
+        event_idx=ev["event_idx"] if specs else None, dyn=dyn,
         sens=yd if use_sens else None, mesh=mesh,
         sens_ys=out_sd if (use_sens and use_dense) else None,
         h_next=h_st,

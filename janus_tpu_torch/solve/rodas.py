@@ -47,8 +47,9 @@ from janus_tpu_torch.solve import common as cm
 from janus_tpu_torch.solve.events import (handle_events, init_event_state,
                                           normalize_events)
 from janus_tpu_torch.solve.options import Options
-from janus_tpu_torch.solve.radau import (_HostSyncs, _i32, _kernel_lu_factor,
-                                         _kernel_lu_solve, default_jacobian)
+from janus_tpu_torch.solve.radau import (STEP_ARGS_GUARD, _HostSyncs, _i32,
+                                         _kernel_lu_factor, _kernel_lu_solve,
+                                         default_jacobian)
 
 # Published RODAS4 coefficients (Hairer & Wanner 1996; rodas.f ROCOE METH=1)
 GAMMA = 0.25
@@ -190,12 +191,11 @@ def solve_rodas(f: Callable, t0, tf, y0, args=None,
     if opts.kernel_lu and opts.pivoting:
         raise ValueError("Options(kernel_lu=True) needs pivoting=False "
                          "(the SoA kernels are pivot-free)")
-    if step_args is not None:
-        raise NotImplementedError(
-            "solve_rodas: step_args= is not ported to janus_tpu_torch yet; "
-            "its one contract for rodas and radau comes with the rest of "
-            "the radau features (ROADMAP.md Queue 1, item 10b)")
     use_sens = tangents is not None or args_tangents is not None
+    use_slabs = step_args is not None
+    if use_slabs and (use_sens or _mesh_size):
+        # one contract with solve_radau (dense= set _mesh_size above)
+        raise ValueError(STEP_ARGS_GUARD)
     if use_sens and (t_eval is not None or events is not None):
         raise ValueError("solve_rodas(tangents=) is terminal-mode only "
                          "(no tangent dense output/event correction); use "
@@ -236,7 +236,15 @@ def solve_rodas(f: Callable, t0, tf, y0, args=None,
             [cm.tree_map(lambda a, _k=k: a[_k], args_d)
              for k in range(yd.shape[0])]
 
-    f0 = f(t0, y0, args)
+    if use_slabs:
+        # a lane's k-th accepted-step attempt (J, f, f_t and every stage)
+        # runs on slab row k, as f(t, y, (args, slab_k))
+        n_slabs, slab_at = cm.make_slab_selector(step_args, y0)
+        args0 = (args, slab_at(torch.zeros((m,), dtype=torch.int32,
+                                           device=dev)))
+    else:
+        args0 = args
+    f0 = f(t0, y0, args0)
     direction = torch.where(tf >= t0, 1.0, -1.0).to(dtype)
     # singular-mass systems: f0 is no derivative on the algebraic rows, so
     # start small (the policy of solve_radau)
@@ -246,13 +254,13 @@ def solve_rodas(f: Callable, t0, tf, y0, args=None,
         # with _h0 == 0 take the automatic initial step
         h_mag = torch.abs(cm.like(_h0, y0).broadcast_to((m,)))
         h_auto = torch.abs(cm.initial_step(
-            f, t0, y0, f0, tf, 4, opts.rtol, opts.atol, args,
+            f, t0, y0, f0, tf, 4, opts.rtol, opts.atol, args0,
             opts.max_step)) if mass is None else h_small
         h_mag = torch.where(h_mag > 0, h_mag, h_auto)
         h_st = torch.minimum(h_mag, torch.abs(tf - t0)) * direction
     elif opts.h0 == 0.0:
         h_st = cm.initial_step(f, t0, y0, f0, tf, 4, opts.rtol, opts.atol,
-                               args, opts.max_step) if mass is None \
+                               args0, opts.max_step) if mass is None \
             else h_small * direction
     else:
         h_st = torch.full((m,), opts.h0, dtype=dtype, device=dev) * direction
@@ -314,12 +322,17 @@ def solve_rodas(f: Callable, t0, tf, y0, args=None,
         last = torch.abs(h_st) >= torch.abs(remaining)
         h = torch.where(last, remaining, h_st)
         h = torch.where(h == 0.0, eps, h)
+        if use_slabs:
+            exhausted = active & (stats["naccept"] >= n_slabs)
+            fa = (args, slab_at(stats["naccept"]))
+        else:
+            fa = args
 
         # ---- Jacobian, f and f_t at the step point (every new point) -----
         needj = need_jac & active
-        jmat = torch.where(needj[:, None, None], jac_fn(t, y, args), jmat)
-        f1 = torch.where(needj[:, None], f(t, y, args), f1)
-        fx = torch.where(needj[:, None], ft_at(f, t, y, args), fx)
+        jmat = torch.where(needj[:, None, None], jac_fn(t, y, fa), jmat)
+        f1 = torch.where(needj[:, None], f(t, y, fa), f1)
+        fx = torch.where(needj[:, None], ft_at(f, t, y, fa), fx)
 
         # ---- factor E = M/(h·γ) − J (lanes whose h or J changed) ---------
         needf = active & (needj | (h != h_fact))
@@ -339,7 +352,7 @@ def solve_rodas(f: Callable, t0, tf, y0, args=None,
                 return lu_solve(_lu, _piv, rhs, pivot=opts.pivoting)
 
         ks, y5, y_emb, y_new = stage_increments(f, slv, mdot, t, h, y, f1,
-                                                fx, args)
+                                                fx, fa)
         t_new = t + h
 
         # ---- error estimate: the 6th increment is the embedded diff ------
@@ -351,6 +364,8 @@ def solve_rodas(f: Callable, t0, tf, y0, args=None,
         enorm = torch.clamp(enorm, min=1e-16)
 
         ok_step = active & fact_ok
+        if use_slabs:
+            ok_step = ok_step & ~exhausted
         accept = ok_step & (enorm <= 1.0)
         reject = ok_step & (enorm > 1.0)
 
@@ -424,6 +439,9 @@ def solve_rodas(f: Callable, t0, tf, y0, args=None,
         status = torch.where(exceeded, cm.MAX_STEPS, status)
         status = torch.where(underflow, cm.STEP_UNDERFLOW, status)
         status = torch.where(stall, cm.NEWTON_STALL, status)
+        if use_slabs:
+            status = torch.where(exhausted, cm.PARAMS_EXHAUSTED, status)
+            active = active & ~exhausted
         status = torch.where(terminate, cm.EVENT_TERMINATED, status)
         active = active & ~done & ~exceeded & ~underflow & ~stall & ~terminate
 

@@ -233,7 +233,8 @@ def test_mode_restrictions_raise():
                                   "rodas", "dopri5"])
 def test_unported_adjoints_raise(what):
     """What is not ported raises NotImplementedError; of what is ported
-    (events, rodas) the restrictions the reference keeps raise ValueError."""
+    (events, rodas, dopri5) the restrictions the reference keeps raise
+    ValueError."""
     y0 = torch.tensor([[2.0, 0.0]], dtype=torch.float64)
     if what == "events":       # ported: non-terminal events have no gradient
         with pytest.raises(ValueError, match="terminal"):
@@ -244,6 +245,11 @@ def test_unported_adjoints_raise(what):
         with pytest.raises(ValueError, match="no backward"):
             solve_adjoint(vdp_rhs, (0.0, 1.0), y0, method=what, args=5.0,
                           options=Options(kernel_lu=True, pivoting=False))
+    elif what == "dopri5":     # ported: non-terminal events have no gradient
+        with pytest.raises(ValueError, match="terminal"):
+            solve_adjoint(vdp_rhs, (0.0, 1.0), y0, method=what, args=5.0,
+                          events=Event(lambda t, y, a: y[:, 0],
+                                       terminal=False))
     else:
         with pytest.raises(NotImplementedError, match="not ported"):
             if what == "variable-stages":

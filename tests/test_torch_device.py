@@ -134,6 +134,11 @@ def test_no_module_of_the_port_imports_jax():
     sources = sorted((root / "janus_tpu_torch").rglob("*.py"))
     sources.append(root / "chip_smoke.py")
     assert len(sources) > 15
+    names = {str(p.relative_to(root)) for p in sources}
+    for module in ("solve/dopri.py", "solve/adjoint_dopri.py",
+                   "solve/discrete.py", "solve/hvp.py", "diag/record.py",
+                   "linalg/qr.py", "models/neural.py", "bench/dopri.py"):
+        assert f"janus_tpu_torch/{module}" in names, module
     pattern = re.compile(r"^\s*(import|from)\s+(jax|janus_tpu)([.\s]|$)",
                          re.MULTILINE)
     for path in sources:
@@ -167,3 +172,47 @@ def test_tree_to_torch_device(no_card):
         "x": 2.0}
     with pytest.raises(ValueError, match="no CUDA device"):
         tree_to_torch(tree)
+
+
+@pytest.mark.parametrize("entry", ["dopri5", "dopri853", "dopri_adjoint",
+                                   "radau_hvp"])
+def test_explicit_family_and_hvp_obey_the_device_rule(entry, no_card):
+    """A numpy y0 raises with no card, solves on the CPU with device="cpu",
+    and equals the same solve of a CPU tensor."""
+    from janus_tpu_torch.solve import dopri_adjoint, radau_hvp
+    y0 = Y0[:, :1]
+    if entry in ("dopri5", "dopri853"):
+        def run(y, **kw):
+            return solve_ivp(_decay, (0.0, 1.0), y, method=entry, args=3.0,
+                             rtol=1e-6, atol=1e-9, **kw).y
+    elif entry == "dopri_adjoint":
+        def run(y, **kw):
+            return dopri_adjoint(_decay, (0.0, 1.0), y, args=3.0, **kw)
+    else:
+        def run(y, **kw):
+            (h, _), _ = radau_hvp(
+                _decay, (0.0, 1.0), y, torch.tensor(3.0, dtype=torch.float64),
+                loss=lambda yT, a: torch.sum(yT ** 2),
+                v_y0=np.ones_like(y0), **kw)
+            return h
+    with pytest.raises(ValueError, match="pass y0 as a CPU tensor"):
+        run(y0)
+    got = run(y0, device="cpu")
+    assert got.device.type == "cpu"
+    torch.testing.assert_close(got, run(torch.from_numpy(y0)), rtol=0,
+                               atol=0)
+
+
+def test_mlp_init_obeys_the_device_rule(no_card):
+    """The network's weights go to the card unless the caller asks for the
+    CPU: with no card mlp_init raises, and device="cpu" gives the same draw
+    on the CPU."""
+    from janus_tpu_torch.models.neural import mlp_init
+    with pytest.raises(ValueError, match="no CUDA device"):
+        mlp_init([2, 8, 2], torch.Generator().manual_seed(0))
+    got = mlp_init([2, 8, 2], torch.Generator().manual_seed(0),
+                   dtype=torch.float64, device="cpu")
+    again = mlp_init([2, 8, 2], torch.Generator().manual_seed(0),
+                     dtype=torch.float64, device="cpu")
+    assert all(leaf.device.type == "cpu" for leaf in got["w"] + got["b"])
+    assert all(torch.equal(a, b) for a, b in zip(got["w"], again["w"]))

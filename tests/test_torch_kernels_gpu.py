@@ -40,6 +40,18 @@ K1/K2 (``kernel_lu=True``; K1 and K2 must have been launched), with the
 interpolant of a ``dense=`` solve to 1e-9 and its mesh to 1e-7 (step sizes
 amplify the two devices' rounding, as they do between the two packages).
 
+The explicit family, its discrete adjoint and the rest of the Radau surface
+(``janus_tpu_torch.bench.dopri``, chip_smoke's phase 16) on the card:
+dopri5 and dopri853 on 256 Van der Pol lanes against the CPU (status and
+counters equal, y to 1e-10 relative) with K1-K4 launched 0 times; the
+neural-ODE gradient of 4 lanes against the CPU, and dL/dy0 of 4 lanes of a
+256-lane batch against the CPU's gradient of those lanes alone (1e-7); the
+Radau9 headline with constant step_args rows and record_steps equal to the
+plain solve to the bit with the same K1/K2 launches (4,096 lanes);
+radau_hvp on 256 lanes through K1/K2 against central differences of
+radau_adjoint gradients; the qr_fallback mixed batch (4,096 lanes) against
+its exact solutions and the CPU.
+
 RODAS4, its discrete adjoint and events (``janus_tpu_torch.bench.rodas``,
 chip_smoke's phase 15) on the card: solve_rodas with kernel_lu=True launches
 K1 and K2 and equals the plain pivot-free LU on the card to 1e-12 (the
@@ -55,6 +67,7 @@ import numpy as np
 import pytest
 import torch
 
+from janus_tpu_torch.bench import dopri as dopri_probe
 from janus_tpu_torch.bench import mol
 from janus_tpu_torch.bench import rodas as rodas_probe
 from janus_tpu_torch.interop import tree_to_torch
@@ -345,3 +358,54 @@ def test_events_on_card_match_cpu():
     rel = (got.event_t.cpu()[hit] - ref.event_t[hit]).abs() \
         / ref.event_t[hit].abs()
     assert float(rel.max()) <= 1e-8
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["dopri5", "dopri853"])
+def test_dopri_on_card_matches_cpu(method):
+    dev = _card()
+    mol._reset_kernel_launches()
+    got = dopri_probe.forward_solve(method, 256, dev)
+    torch.cuda.synchronize()
+    assert not any(mol._kernel_launches().values())
+    ref = dopri_probe.forward_solve(method, 256, torch.device("cpu"))
+    assert bool((got.status == 1).all())
+    assert torch.equal(got.status.cpu(), ref.status)
+    for k in ref.stats:
+        assert torch.equal(got.stats[k].cpu(), ref.stats[k]), k
+    assert float((got.y.cpu() - ref.y).abs().max() / ref.y.abs().max()) \
+        <= 1e-10
+
+
+@pytest.mark.gpu
+def test_neural_ode_gradient_on_card_matches_cpu():
+    assert dopri_probe.node_cpu_check(_card(), torch.float64, 0.0) <= 1e-7
+
+
+@pytest.mark.gpu
+def test_neural_ode_batch_lanes_on_card_match_cpu():
+    dev = _card()
+    data = dopri_probe.node_data(256, torch.float64, dev)
+    data[0].requires_grad_()
+    params = dopri_probe.node_params(torch.float64, dev)
+    grads = dopri_probe.node_gradient(params, data, dopri_probe.REG)[1]
+    assert dopri_probe.node_lane_check(params, data, dopri_probe.REG,
+                                       grads[-1], [0, 85, 170, 255]) <= 1e-7
+
+
+@pytest.mark.gpu
+def test_step_args_headline_on_card():
+    rec = dopri_probe.step_args_phase(_card(), m=4096)
+    assert rec["launches"]["K1"] > 0 and rec["launches"]["K2"] > 0
+
+
+@pytest.mark.gpu
+def test_hvp_through_kernels_on_card():
+    rec = dopri_probe.hvp_phase(_card(), m=256, smoke=True)
+    assert rec["launches"]["K1"] > 0 and rec["fd_worst"] <= 1.0
+
+
+@pytest.mark.gpu
+def test_qr_fallback_on_card():
+    rec = dopri_probe.qr_phase(_card(), m=4096)
+    assert rec["cpu"] <= 1e-10

@@ -139,18 +139,25 @@ def test_options_from_jax_reads_every_field():
     assert options_from_jax(RefOptions()) == Options()
 
 
+def _vdp_slab(t, y, a):
+    """vdp_rhs under step_args: μ times the lane's slab row (all ones)."""
+    base, slab = a
+    return vdp_rhs(t, y, base * slab)
+
+
 # feature -> (call keywords, the field of Solution it fills, or None while it
 # is unported and raises). The ported ones are held against the reference in
-# tests/test_torch_dense_quad.py.
+# tests/test_torch_dense_quad.py, test_torch_step_args.py and
+# test_torch_qr_fallback.py.
 FEATURES = {
     "t_eval": (dict(t_eval=np.linspace(0.0, 1.0, 3)), "ys"),
     "events": (dict(events=lambda t, y, a: y[:, 0]), "event_t"),
     "dense": (dict(dense=64), "mesh"),
     "quad": (dict(quad=lambda t, y, a: y[:, 0]), "quad"),
-    "step_args": (dict(step_args=torch.ones((3, 1), dtype=torch.float64)),
-                  None),
-    "record_steps": (dict(options=Options(record_steps=4)), None),
-    "qr_fallback": (dict(options=Options(qr_fallback=True)), None),
+    "step_args": (dict(step_args=torch.ones((64,), dtype=torch.float64)),
+                  "status"),
+    "record_steps": (dict(options=Options(record_steps=4)), "dyn"),
+    "qr_fallback": (dict(options=Options(qr_fallback=True)), "y"),
     "_mesh_size": (dict(_mesh_size=64), "mesh"),
     "_h0": (dict(_h0=0.1), "h_next"),
 }
@@ -159,7 +166,8 @@ FEATURES = {
 @pytest.mark.parametrize("feature", list(FEATURES))
 def test_unported_features_raise(feature):
     """Every feature of the reference's signature: an unported one raises
-    NotImplementedError, a ported one runs and fills its field."""
+    NotImplementedError, a ported one runs and fills its field (all of them
+    are ported now)."""
     y0 = torch.tensor([[2.0, 0.0]], dtype=torch.float64)
     kw, field = FEATURES[feature]
     if field is None:
@@ -167,7 +175,8 @@ def test_unported_features_raise(feature):
             solve_radau(vdp_rhs, 0.0, 1.0, y0, args=10.0, **kw)
         return
     plain = solve_radau(vdp_rhs, 0.0, 1.0, y0, args=10.0)
-    sol = solve_radau(vdp_rhs, 0.0, 1.0, y0, args=10.0, **kw)
+    f = _vdp_slab if feature == "step_args" else vdp_rhs
+    sol = solve_radau(f, 0.0, 1.0, y0, args=10.0, **kw)
     assert int(sol.status[0]) == 1 and getattr(sol, field) is not None
     if feature == "_h0":       # another first step, the same answer to rtol
         assert not torch.equal(sol.stats["nsteps"], plain.stats["nsteps"])
@@ -188,7 +197,7 @@ def test_guards_and_methods_raise():
     with pytest.raises(ValueError, match="unknown stage_solver"):
         solve_radau(vdp_rhs, 0.0, 1.0, y0, args=10.0,
                     options=Options(stage_solver="cg"))
-    for method in ("dopri5", "bdf", "radaup"):
+    for method in ("bdf", "radaup", "seulex"):
         with pytest.raises(NotImplementedError, match="not ported"):
             solve_ivp(vdp_rhs, (0.0, 1.0), y0, method=method, args=10.0)
     with pytest.raises(NotImplementedError, match="variable-order"):

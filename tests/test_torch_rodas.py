@@ -202,6 +202,8 @@ def test_rodas_raises():
                     events=lambda t, y, a: y[:, 0])
     with pytest.raises(ValueError, match="pivoting=False"):
         solve_rodas(_vdp(torch), 0.0, 1.0, y0, 1.0, Options(kernel_lu=True))
-    with pytest.raises(NotImplementedError, match="item 10b"):
+    # step_args= has one contract with radau (tests/test_torch_step_args.py)
+    with pytest.raises(ValueError, match="step_args= does not compose"):
         solve_ivp(_vdp(torch), (0.0, 1.0), y0, method="rodas", args=1.0,
-                  step_args=torch.ones((3, 1), dtype=torch.float64))
+                  step_args=torch.ones((3, 1), dtype=torch.float64),
+                  tangents=seeds)

@@ -114,7 +114,19 @@ Phases, one line each (everything is made from fixed seeds):
     (``launches_step_args`` in the kernels line); radau_hvp on 1,024 VdP
     lanes whose augmented D=4 forward goes through K1/K2
     (``launches_hvp``), 3 lanes against central differences of
-    radau_adjoint gradients.
+    radau_adjoint gradients;
+17. the variable-order NDF/BDF family and its discrete adjoint
+    (janus_tpu_torch.bench.ndf, its shortest check): solve_bdf on the
+    65,536 headline lanes (mu = 1e3, rtol 1e-6, f64, pivoting=False, K=2
+    IND) through K1/K2 (K1 factors M - c*J, K2 does every Newton and
+    tangent solve; ``launches_ndf`` in the kernels line) and through the
+    plain pivot-free LU, one turn each: every lane SUCCESS, the eight
+    counters equal, y within 1e-8 and sens within 1e-5 of the plain route,
+    lane 0 against scipy's Radau; ndf_adjoint's gradient at 8,192 lanes
+    (mu = logspace(1.5, 3), rtol 1e-4, adjoint_steps=128, f64, through
+    K1/K2: ``launches_ndf_adjoint``): finite, the transpose oracle against
+    solve_bdf's IND tangents (1e-6), d/dmu of three lanes against central
+    differences (1e-3) and 4 lanes against the CPU (1e-7).
 
 Then one JSON line with the kernels' records, nvidia-smi's line, and last
 {"ok": true, "device": {...}}. Any failed check raises; no phase's failure
@@ -162,6 +174,7 @@ def main():
     from janus_tpu_torch.bench import dopri as dopri_probe
     from janus_tpu_torch.bench import kernels as bench
     from janus_tpu_torch.bench import mol
+    from janus_tpu_torch.bench import ndf as ndf_probe
     from janus_tpu_torch.bench import rodas as rodas_probe
     from janus_tpu_torch.models.problems import (DEVICE_PROBLEMS,
                                                  robertson_rhs, vdp_jac,
@@ -627,6 +640,13 @@ def main():
     route = {"launches_step_args": dopri_report["step_args"]["launches"],
              "launches_hvp": dopri_report["hvp"]["launches"]}
     print(f"[phase 16] {time.perf_counter() - t16:.1f} s", flush=True)
+
+    # ---- 17. NDF/BDF and its discrete adjoint -----------------------------------
+    t17 = time.perf_counter()
+    ndf_report = ndf_probe.run(dev, smoke=True)     # raises NdfCheckFailed
+    route.update(launches_ndf=ndf_report["forward"]["launches"],
+                 launches_ndf_adjoint=ndf_report["adjoint_f64"]["launches"])
+    print(f"[phase 17] {time.perf_counter() - t17:.1f} s", flush=True)
 
     k1, k1p, k2, k2p, extra = times[(torch.float64, 4)]
     (b1, by1, lib1), (b2, by2, lib2) = (extra["lu_factor_t"],

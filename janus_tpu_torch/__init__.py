@@ -29,7 +29,9 @@ method) with their discrete adjoint ``solve.dopri_adjoint`` (the
 neural-ODE training path, ``models/neural.py``), both discrete adjoints on
 ``solve/discrete.py``; ``step_args=``, ``record_steps`` (``diag/record.py``)
 and ``qr_fallback`` (``linalg/qr.py``) on the Radau solve, and its
-Hessian-vector products ``solve.radau_hvp``.
+Hessian-vector products ``solve.radau_hvp``; the variable-order NDF/BDF
+(``solve/ndf.py``, its corrector through K1/K2 under ``kernel_lu``) with
+its discrete adjoint ``solve.ndf_adjoint`` (``solve/adjoint_ndf.py``).
 
 Precision: f32 contractions must not be demoted to TF32 on the card (a
 demoted contraction stalls the f32 Newton) — the role of the reference's

@@ -3,8 +3,8 @@ Dormand–Prince pairs and their discrete adjoint; fixed-stage radau, with the
 dense stage LU or the matrix-free GMRES / tridiagonal stage solvers, mass
 matrices, dense output, t_eval, quadratures, events, step_args, step
 recording and the QR fallback; its continuous adjoint and Hessian-vector
-products; RODAS4 and its discrete adjoint; and the fused one-kernel Radau5
-step)."""
+products; RODAS4 and its discrete adjoint; the variable-order NDF/BDF and
+its discrete adjoint; and the fused one-kernel Radau5 step)."""
 
 from __future__ import annotations
 
@@ -22,10 +22,12 @@ from janus_tpu_torch.solve.common import (
 )
 from janus_tpu_torch.solve.adjoint import radau_adjoint
 from janus_tpu_torch.solve.adjoint_dopri import dopri_adjoint
+from janus_tpu_torch.solve.adjoint_ndf import ndf_adjoint
 from janus_tpu_torch.solve.adjoint_rodas import rodas_adjoint
 from janus_tpu_torch.solve.dopri import TABLEAUS, solve_erk
 from janus_tpu_torch.solve.events import Event
 from janus_tpu_torch.solve.hvp import radau_hvp
+from janus_tpu_torch.solve.ndf import solve_bdf
 from janus_tpu_torch.solve.options import Options
 from janus_tpu_torch.solve.radau import solve_radau
 from janus_tpu_torch.solve.radau_fused import solve_radau_fused
@@ -40,6 +42,7 @@ FEATURES = {
     #                jac    mass   events t_eval
     "dopri5":       (False, False, True,  True),
     "dopri853":     (False, False, True,  True),
+    "bdf":          (True,  True,  True,  True),
     "radau":        (True,  True,  True,  True),
     "radau_fused":  (False, False, False, False),
     "rodas":        (True,  True,  True,  True),
@@ -56,7 +59,7 @@ _ALIASES = {
 
 # the reference's methods that are not ported yet -> their ROADMAP.md Queue 1
 # item
-_UNPORTED = {"bdf": 15, "seulex": 16, "radaup": 17, "bdf2": 18,
+_UNPORTED = {"seulex": 16, "radaup": 17, "bdf2": 18,
              "grk4t": 18}
 
 
@@ -115,8 +118,10 @@ def solve_ivp(f: Callable, tspan, y0, method: str = "dopri5", args: Any = None,
     tangents=) and events= (``solve.events.Event``; Solution.event_t,
     event_y, event_idx, and sens_t with tangents=); 'rodas' (RODAS4, with
     mass=, t_eval=, events=, dense=, quad= and, in terminal mode,
-    tangents=); and
-    'radau_fused' (Radau5 with the whole step attempt in one CUDA kernel;
+    tangents=); 'bdf'/'ndf' (variable-order NDF, orders 1-5) and
+    'bdf_classic' (classical BDF), with mass=, t_eval=, events=, dense=,
+    quad=, the matrix-free stage solvers and, in terminal mode, tangents=;
+    and 'radau_fused' (Radau5 with the whole step attempt in one CUDA kernel;
     on the card f must be in models.problems.DEVICE_PROBLEMS). The
     reference's other methods raise NotImplementedError naming the
     ROADMAP.md item that ports them; a name the reference does not know
@@ -136,20 +141,21 @@ def solve_ivp(f: Callable, tspan, y0, method: str = "dopri5", args: Any = None,
     canonical = _canonical(method)
     _check_features(canonical, jac, mass, events, t_eval)
     if (tangents is not None or args_tangents is not None) \
-            and canonical not in ("radau", "rodas"):
+            and canonical not in ("radau", "rodas", "bdf"):
         raise ValueError("tangents= (internal-differentiation sensitivities)"
                          " is supported by the 'radau'/'radaup' methods, "
                          "'seulex', 'rodas' and 'bdf'; use torch.func.jvp "
                          "through the solve otherwise")
-    if quad is not None and canonical not in ("radau", "rodas", "dopri5",
-                                              "dopri853"):
+    if quad is not None and canonical not in ("radau", "rodas", "bdf",
+                                              "dopri5", "dopri853"):
         raise ValueError("quad= (running-cost quadratures) is supported by "
                          "the fixed-stage 'radau' methods (collocation-"
                          "weight rule, incl. sens_quad), 'radaup', 'rodas',"
                          " 'seulex', 'bdf' and 'dopri5'/'dopri853' (Gauss-"
                          "Legendre on the dense interpolant); integrate "
                          "the cost as an extra state otherwise")
-    if dense and canonical not in ("radau", "rodas", "dopri5", "dopri853"):
+    if dense and canonical not in ("radau", "rodas", "bdf", "dopri5",
+                                   "dopri853"):
         raise ValueError("dense= (post-hoc Solution.interpolate) is "
                          "supported by the 'radau'/'radaup' methods, "
                          "'rodas', 'seulex', 'bdf' and "
@@ -175,6 +181,14 @@ def solve_ivp(f: Callable, tspan, y0, method: str = "dopri5", args: Any = None,
                            mass=mass, events=events, tangents=tangents,
                            args_tangents=args_tangents, quad=quad,
                            dense=dense, step_args=step_args, device=device)
+    if canonical == "bdf":
+        # variable order 1-5 with the NDF kappas (as scipy's BDF), or
+        # classical BDF
+        return solve_bdf(f, t0, tf, y0, args, options, t_eval, jac=jac,
+                         events=events, mass=mass, tangents=tangents,
+                         args_tangents=args_tangents, quad=quad,
+                         dense=dense, ndf=method != "bdf_classic",
+                         device=device)
     stages = _RADAU_STAGES[method]
     if stages is not None:
         options = options.replace(min_stages=stages, max_stages=stages)
@@ -191,7 +205,7 @@ def solve_ivp(f: Callable, tspan, y0, method: str = "dopri5", args: Any = None,
 
 
 # method -> the Queue 1 item of ROADMAP.md that brings its adjoint
-_ADJOINT_ITEMS = {"radaup": 17, "seulex": 16, "bdf": 15}
+_ADJOINT_ITEMS = {"radaup": 17, "seulex": 16}
 
 
 def solve_adjoint(f: Callable, tspan, y0, method: str = "radau",
@@ -208,10 +222,13 @@ def solve_adjoint(f: Callable, tspan, y0, method: str = "radau",
     jac=: see ``radau_adjoint``) and 'rodas' (the discrete adjoint, which
     takes events=, cost=, n_alg=, mass=, jac=: see ``rodas_adjoint``) and
     'dopri5'/'dopri853' (the discrete adjoint of the explicit family, the
-    neural-ODE training path; events=, cost=: see ``dopri_adjoint``). With
+    neural-ODE training path; events=, cost=: see ``dopri_adjoint``) and
+    'bdf'/'ndf'/'bdf_classic' (the discrete adjoint of the NDF/BDF family,
+    which takes events=, cost=, n_alg=, mass=, jac=: see ``ndf_adjoint``;
+    'bdf_classic' replays classical BDF). With
     terminal events= they return (y*, t*), or (ys, y*, t*) with t_eval=.
     Aliases follow solve_ivp's table. The reference's other families
-    ('radaup', 'seulex', 'bdf') raise
+    ('radaup', 'seulex') raise
     NotImplementedError until their adjoints are ported (ROADMAP.md Queue
     1); a method with no reverse mode raises ValueError."""
     method = method.lower()
@@ -229,23 +246,29 @@ def solve_adjoint(f: Callable, tspan, y0, method: str = "radau",
     if canonical in TABLEAUS:
         return dopri_adjoint(f, tspan, y0, args=args, options=options,
                              t_eval=t_eval, method=canonical, **kw)
+    if canonical == "bdf":
+        # 'bdf_classic' replays classical BDF, as solve_ivp solves it
+        if method == "bdf_classic":
+            kw = {"ndf": False, **kw}
+        return ndf_adjoint(f, tspan, y0, args=args, options=options,
+                           t_eval=t_eval, **kw)
     if canonical in _ADJOINT_ITEMS:
         raise NotImplementedError(
             f"solve_adjoint: the adjoint of method {method!r} is not ported "
             f"to janus_tpu_torch yet (ROADMAP.md Queue 1, item "
             f"{_ADJOINT_ITEMS[canonical]}); ported: 'radau', 'rodas', "
-            "'dopri5', 'dopri853'")
+            "'bdf', 'dopri5', 'dopri853'")
     raise ValueError(
         f"solve_adjoint: no reverse mode for method {method!r}; available: "
-        "radau (continuous), rodas and dopri5/dopri853 (discrete). Forward "
-        "sensitivities: "
-        "solve_ivp(tangents=)")
+        "radau (continuous), rodas, bdf and dopri5/dopri853 (discrete). "
+        "Forward sensitivities: solve_ivp(tangents=)")
 
 
 __all__ = [
     "solve_ivp", "solve_erk", "solve_radau", "solve_radau_fused",
-    "solve_rodas", "Solution", "Options", "Event", "FEATURES",
+    "solve_rodas", "solve_bdf", "Solution", "Options", "Event", "FEATURES",
     "radau_adjoint", "radau_hvp", "rodas_adjoint", "dopri_adjoint",
+    "ndf_adjoint",
     "solve_adjoint",
     "RUNNING", "SUCCESS", "MAX_STEPS", "STEP_UNDERFLOW", "NEWTON_STALL",
     "EVENT_TERMINATED", "PARAMS_EXHAUSTED",

@@ -1,4 +1,5 @@
-"""The discrete adjoints' shared Function and backward sweep (rodas, dopri).
+"""The discrete adjoints' shared Function and backward sweep (rodas, dopri;
+the Function and the sweep's pieces also NDF's).
 
 A discrete adjoint differentiates the solver's own step map: one accepted
 step is a closed-form function y_{n+1} = Φ(t_n, h_n, y_n, θ) of the recorded
@@ -15,7 +16,11 @@ family supplies, in ``cfg``:
 - ``ydot(t, y, dleaves)``: the true state velocity at a boundary;
 - ``events`` (terminal), ``cost``, ``rebuild`` (the args tree from its
   differentiable leaves) and ``entry``, the public function whose
-  ``host_syncs`` the sweep sets.
+  ``host_syncs`` the sweep sets;
+- optionally ``sweep``, a backward loop of its own with ``sweep``'s
+  signature, for a family whose state is not y alone (NDF carries a whole
+  difference array); it then needs no ``replay``, and its mesh may hold
+  any rings.
 
 How the sweep is built:
 - a Python loop over the step index k = max(naccept)−1 … 0 (one host read
@@ -58,9 +63,10 @@ class DiscreteAdjointFn(torch.autograd.Function):
         ctx.t_in = tuple(x if not isinstance(x, torch.Tensor) else None
                          for x in (t0, tf))
         idx = event_index(sol)
+        ctx.mesh_keys = tuple(sol.mesh)
         tensors = [x for x in (t0, tf) if isinstance(x, torch.Tensor)]
         tensors += [y0, *dleaves, sol.y, sol.t, idx, sol.stats["naccept"],
-                    sol.mesh["t"], sol.mesh["h"], sol.mesh["y"]]
+                    *sol.mesh.values()]
         ctx.save_for_backward(*tensors)
         ctx.set_materialize_grads(False)
         ctx.mark_non_differentiable(sol.h_next, idx)
@@ -76,10 +82,10 @@ class DiscreteAdjointFn(torch.autograd.Function):
         y0 = saved.pop(0)
         dleaves = [saved.pop(0) for _ in range(ctx.n_leaves)]
         y_end, t_end, ev_idx, nacc, *rings = saved
-        mesh = dict(zip(("t", "h", "y"), rings))
+        mesh = dict(zip(ctx.mesh_keys, rings))
         del saved, rings
         t0b, _, y0b = cm.broadcast_batch(t0, tf, y0)
-        lam0, gleaves, t0bar, tfbar = sweep(
+        lam0, gleaves, t0bar, tfbar = cfg.get("sweep", sweep)(
             cfg, mesh, nacc, t0b, y0b, t_end, y_end, ev_idx, dleaves, ybar,
             tbar, qbar)
         cfg["entry"].host_syncs = 1
@@ -146,10 +152,7 @@ def sweep(cfg, mesh, nacc, t0b, y0b, t_end, y_end, ev_idx, dleaves, ybar,
         return outs
 
     grads = [torch.zeros_like(leaf) for leaf in dleaves]
-    # one host read: the longest mesh, and the slot of each lane's event step
-    host = torch.cat([nacc.max()[None],
-                      torch.where(triggered, nacc - 1, -1)]).tolist()
-    n_live, evt_slots = min(host[0], cap), set(host[1:]) - {-1}
+    n_live, evt_slots = live_slots(nacc, triggered, cap)
     for k in range(n_live - 1, -1, -1):
         live = k < nacc                                   # [M]
         tk = torch.where(live, mesh["t"][:, k], t0b)
@@ -182,21 +185,47 @@ def sweep(cfg, mesh, nacc, t0b, y0b, t_end, y_end, ev_idx, dleaves, ybar,
         lam = torch.where(live[:, None], dy, lam)
         grads = [g + d for g, d in zip(grads, dgl)]
 
-    over = nacc > cap
-    lam0 = torch.where(over[:, None], torch.nan, lam)
-    any_over = over.any()
-    grads = [torch.where(any_over, torch.nan, g) for g in grads]
+    lam0, grads = overflow_nan(nacc, cap, lam, grads)
+    t0bar, tfbar = boundary_times(
+        cfg["ydot"], lfun if use_cost else None, qb if use_cost else None,
+        ybar, tbar, lam0, t_end, y_end, t0b, y0b, dleaves, triggered)
+    return lam0, grads, t0bar, tfbar
 
-    # boundary times: t̄0 = −λ0·ẏ(t0), t̄f = ȳ·ẏ(T) with the true velocity
-    ydot = cfg["ydot"]
+
+def live_slots(nacc, triggered, cap):
+    """One host read before a backward loop: (the number of slots any lane
+    filled, capped at the ring's capacity; the set of slots where a lane's
+    terminal event step lies). Every slot above the first is dead for
+    every lane, so the loop runs from it down to 0."""
+    host = torch.cat([nacc.max()[None],
+                      torch.where(triggered, nacc - 1, -1)]).tolist()
+    return min(host[0], cap), set(host[1:]) - {-1}
+
+
+def overflow_nan(nacc, cap, lam0, grads):
+    """A lane that accepted more steps than the ring holds has an incomplete
+    mesh: NaN for its λ(t0) and, when any lane overflowed, for every shared
+    leaf's gradient (never a silently truncated gradient)."""
+    over = nacc > cap
+    lam0 = torch.where(over.reshape((-1,) + (1,) * (lam0.ndim - 1)),
+                       torch.nan, lam0)
+    any_over = over.any()
+    return lam0, [torch.where(any_over, torch.nan, g) for g in grads]
+
+
+def boundary_times(ydot, lfun, qb, ybar, tbar, lam0, t_end, y_end, t0b, y0b,
+                   dleaves, triggered):
+    """(t̄0, t̄f) [M]: t̄0 = −λ0·ẏ(t0), t̄f = ȳ·ẏ(T) with the true velocity
+    ydot(t, y, dleaves), plus the running cost's endpoint terms when lfun
+    (canonical [M, Q]) and its cotangent qb are given."""
     tfbar = torch.sum(ybar * ydot(t_end, y_end, dleaves), dim=-1)
-    if use_cost:
+    if lfun is not None:
         # the quadrature's endpoint moves with tf: dq/dT = l(T, y(T))
-        tfbar = tfbar + torch.sum(qb * l_end, dim=-1)
+        tfbar = tfbar + torch.sum(qb * lfun(t_end, y_end, dleaves), dim=-1)
     # a triggered lane stopped at t* < tf: tf moves nothing (frozen mesh);
     # an untriggered one returns t = tf exactly, so t̄ adds 1:1
     tfbar = torch.where(triggered, 0.0, tfbar + tbar)
     t0bar = -torch.sum(lam0 * ydot(t0b, y0b, dleaves), dim=-1)
-    if use_cost:
+    if lfun is not None:
         t0bar = t0bar - torch.sum(qb * lfun(t0b, y0b, dleaves), dim=-1)
-    return lam0, grads, t0bar, tfbar
+    return t0bar, tfbar

@@ -76,6 +76,11 @@ class _HostSyncs:
         self.count += 1
         return bool(mask.any())
 
+    def any_each(self, *masks):
+        """(any(m) for m in masks) read in ONE host sync."""
+        self.count += 1
+        return torch.stack([mask.any() for mask in masks]).tolist()
+
 
 def _ipow(x, n: int):
     """x**n for a static int n > 0 by the same square-and-multiply sequence

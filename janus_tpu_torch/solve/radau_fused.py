@@ -102,8 +102,9 @@ def _factor_rows(a, d):
 
 def _rdiv(c: float, x):
     """c / x as a true division (torch's ``c / x`` multiplies c by x's
-    reciprocal, which rounds twice)."""
-    return x.new_tensor(c) / x
+    reciprocal, which rounds twice). c is filled on x's device: a tensor
+    made from a number on the card would be a blocking copy."""
+    return x.new_full((), c) / x
 
 
 def _div(x, c: float):

@@ -137,7 +137,8 @@ def test_no_module_of_the_port_imports_jax():
     names = {str(p.relative_to(root)) for p in sources}
     for module in ("solve/dopri.py", "solve/adjoint_dopri.py",
                    "solve/discrete.py", "solve/hvp.py", "diag/record.py",
-                   "linalg/qr.py", "models/neural.py", "bench/dopri.py"):
+                   "linalg/qr.py", "models/neural.py", "bench/dopri.py",
+                   "solve/ndf.py", "solve/adjoint_ndf.py", "bench/ndf.py"):
         assert f"janus_tpu_torch/{module}" in names, module
     pattern = re.compile(r"^\s*(import|from)\s+(jax|janus_tpu)([.\s]|$)",
                          re.MULTILINE)
@@ -200,6 +201,26 @@ def test_explicit_family_and_hvp_obey_the_device_rule(entry, no_card):
     got = run(y0, device="cpu")
     assert got.device.type == "cpu"
     torch.testing.assert_close(got, run(torch.from_numpy(y0)), rtol=0,
+                               atol=0)
+
+
+@pytest.mark.parametrize("entry", ["bdf", "ndf_adjoint"])
+def test_ndf_family_obeys_the_device_rule(entry, no_card):
+    """A numpy y0 raises with no card, solves on the CPU with device="cpu",
+    and equals the same solve of a CPU tensor."""
+    from janus_tpu_torch.solve import ndf_adjoint
+    if entry == "bdf":
+        def run(y, **kw):
+            return solve_ivp(_decay, (0.0, 1.0), y, method="bdf", args=3.0,
+                             rtol=1e-6, atol=1e-9, **kw).y
+    else:
+        def run(y, **kw):
+            return ndf_adjoint(_decay, (0.0, 1.0), y, args=3.0, **kw)
+    with pytest.raises(ValueError, match="pass y0 as a CPU tensor"):
+        run(Y0)
+    got = run(Y0, device="cpu")
+    assert got.device.type == "cpu"
+    torch.testing.assert_close(got, run(torch.from_numpy(Y0)), rtol=0,
                                atol=0)
 
 

@@ -61,6 +61,13 @@ finite, the transpose oracle to 1e-10 and d/dμ against central differences
 to 1e-4, and 4 lanes against the CPU to 1e-7; a terminal event on 256
 Radau5 lanes: event_t, event_idx and status against the CPU (event_t to
 1e-8 relative).
+
+The NDF/BDF family (``janus_tpu_torch.bench.ndf``, chip_smoke's phase 17)
+on the card: solve_bdf on 4,096 headline lanes (VdP μ = 1e3, rtol 1e-6,
+K=2 IND) with kernel_lu=True launches K1 and K2 and matches the plain
+pivot-free LU with all eight counters equal, y to 1e-10 and sens to 1e-5
+relative to their largest entries; 4 lanes of the ndf_adjoint gradient of
+the stiff adjoint configuration (through K1/K2) against the CPU to 1e-7.
 """
 
 import numpy as np
@@ -69,6 +76,7 @@ import torch
 
 from janus_tpu_torch.bench import dopri as dopri_probe
 from janus_tpu_torch.bench import mol
+from janus_tpu_torch.bench import ndf as ndf_probe
 from janus_tpu_torch.bench import rodas as rodas_probe
 from janus_tpu_torch.interop import tree_to_torch
 from janus_tpu_torch.linalg import gmres as gm
@@ -409,3 +417,28 @@ def test_hvp_through_kernels_on_card():
 def test_qr_fallback_on_card():
     rec = dopri_probe.qr_phase(_card(), m=4096)
     assert rec["cpu"] <= 1e-10
+
+
+@pytest.mark.gpu
+def test_ndf_kernels_on_card_match_plain_lu():
+    dev = _card()
+    smalllu.reset_launch_counts()
+    got = ndf_probe.forward_solve(dev, True, m=4096)
+    assert smalllu.lu_factor_t.launches > 0 and smalllu.lu_solve_t.launches > 0
+    ref = ndf_probe.forward_solve(dev, False, m=4096)
+    assert bool((got.status == 1).all())
+    for k in ndf_probe.STATS:
+        assert torch.equal(got.stats[k], ref.stats[k]), k
+    for k, tol in (("y", 1e-10), ("sens", 1e-5)):
+        a, b = getattr(got, k), getattr(ref, k)
+        assert float((a - b).abs().max() / b.abs().max()) <= tol, k
+
+
+@pytest.mark.gpu
+def test_ndf_adjoint_on_card_matches_cpu():
+    dev = _card()
+    got = ndf_probe.gradient(4, torch.float64, dev)
+    ref = ndf_probe.gradient(4, torch.float64, torch.device("cpu"))
+    for a, b in zip(got[1:], ref[1:]):
+        assert a.is_cuda and bool(torch.isfinite(a).all())
+        assert float((a.cpu() - b).abs().max() / b.abs().max()) <= 1e-7

@@ -197,7 +197,7 @@ def test_guards_and_methods_raise():
     with pytest.raises(ValueError, match="unknown stage_solver"):
         solve_radau(vdp_rhs, 0.0, 1.0, y0, args=10.0,
                     options=Options(stage_solver="cg"))
-    for method in ("bdf", "radaup", "seulex"):
+    for method in ("radaup", "seulex"):
         with pytest.raises(NotImplementedError, match="not ported"):
             solve_ivp(vdp_rhs, (0.0, 1.0), y0, method=method, args=10.0)
     with pytest.raises(NotImplementedError, match="variable-order"):

@@ -126,7 +126,21 @@ Phases, one line each (everything is made from fixed seeds):
     (mu = logspace(1.5, 3), rtol 1e-4, adjoint_steps=128, f64, through
     K1/K2: ``launches_ndf_adjoint``): finite, the transpose oracle against
     solve_bdf's IND tangents (1e-6), d/dmu of three lanes against central
-    differences (1e-3) and 4 lanes against the CPU (1e-7).
+    differences (1e-3) and 4 lanes against the CPU (1e-7);
+18. SEULEX and its discrete adjoint (janus_tpu_torch.bench.seulex, its
+    shortest check): solve_seulex on the 65,536 headline lanes (mu = 1e3,
+    rtol 1e-6, f64, pivoting=False, K=2 IND) through K1/K2 (K1 factors
+    every ladder level's M/h' - J, K2 does every substep, stability-check
+    and tangent solve; ``launches_seulex`` in the kernels line) and through
+    the plain pivot-free LU, one turn each: every lane SUCCESS, the seven
+    counters equal, y within 1e-10 and sens within 1e-8 of the plain route,
+    8 lanes (and 8 of a mu = logspace(1, 3) solve) against scipy's Radau;
+    seulex_adjoint's gradient at 8,192 lanes (mu = logspace(1.5, 3), rtol
+    1e-4, adjoint_steps=128, seulex_kmax=5, f64, the recording forward
+    through K1/K2: ``launches_seulex_adjoint``): finite, the replay of the
+    recorded mesh, autograd of the frozen replay chain (1e-10), d/dmu of
+    three lanes against central differences (1e-4) and 4 lanes against the
+    CPU (1e-7).
 
 Then one JSON line with the kernels' records, nvidia-smi's line, and last
 {"ok": true, "device": {...}}. Any failed check raises; no phase's failure
@@ -176,6 +190,7 @@ def main():
     from janus_tpu_torch.bench import mol
     from janus_tpu_torch.bench import ndf as ndf_probe
     from janus_tpu_torch.bench import rodas as rodas_probe
+    from janus_tpu_torch.bench import seulex as seulex_probe
     from janus_tpu_torch.models.problems import (DEVICE_PROBLEMS,
                                                  robertson_rhs, vdp_jac,
                                                  vdp_rhs)
@@ -647,6 +662,14 @@ def main():
     route.update(launches_ndf=ndf_report["forward"]["launches"],
                  launches_ndf_adjoint=ndf_report["adjoint_f64"]["launches"])
     print(f"[phase 17] {time.perf_counter() - t17:.1f} s", flush=True)
+
+    # ---- 18. SEULEX and its discrete adjoint ------------------------------------
+    t18 = time.perf_counter()
+    seulex_report = seulex_probe.run(dev, smoke=True)  # SeulexCheckFailed
+    route.update(
+        launches_seulex=seulex_report["forward"]["launches"],
+        launches_seulex_adjoint=seulex_report["adjoint_f64"]["launches"])
+    print(f"[phase 18] {time.perf_counter() - t18:.1f} s", flush=True)
 
     k1, k1p, k2, k2p, extra = times[(torch.float64, 4)]
     (b1, by1, lib1), (b2, by2, lib2) = (extra["lu_factor_t"],

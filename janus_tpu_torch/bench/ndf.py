@@ -220,9 +220,10 @@ def forward_solve(dev, kernel_lu, mus=None, m=M_FWD):
                      tangents=seeds)
 
 
-def scipy_worst(y_got, mus, lanes):
+def scipy_worst(y_got, mus, lanes, bound=(5e-4, 5e-6), who="ndf",
+                fail=NdfCheckFailed):
     """Worst error / bound of the given lanes against scipy's Radau at rtol
-    1e-10 (bound 5e-4 relative + 5e-6)."""
+    1e-10 (bound: relative, absolute); raises ``fail`` above it."""
     from scipy.integrate import solve_ivp as scipy_ivp
     worst, cache = 0.0, {}
     for i in lanes:
@@ -235,10 +236,10 @@ def scipy_worst(y_got, mus, lanes):
                 jac=lambda t, y: [[0.0, 1.0], [-2 * mu * y[0] * y[1] - 1,
                                                mu * (1 - y[0] ** 2)]]).y[:, -1]
         ref = cache[mu]
-        e = np.abs(y_got[i] - ref) / (5e-4 * np.abs(ref) + 5e-6)
+        e = np.abs(y_got[i] - ref) / (bound[0] * np.abs(ref) + bound[1])
         if not np.all(e <= 1.0):
-            raise NdfCheckFailed(f"ndf lane {i} (mu={mu:.4g}): y {y_got[i]} "
-                                 f"vs scipy {ref}")
+            raise fail(f"{who} lane {i} (mu={mu:.4g}): y {y_got[i]} vs "
+                       f"scipy {ref}")
         worst = max(worst, float(e.max()))
     return worst
 

@@ -4,7 +4,8 @@ dense stage LU or the matrix-free GMRES / tridiagonal stage solvers, mass
 matrices, dense output, t_eval, quadratures, events, step_args, step
 recording and the QR fallback; its continuous adjoint and Hessian-vector
 products; RODAS4 and its discrete adjoint; the variable-order NDF/BDF and
-its discrete adjoint; and the fused one-kernel Radau5 step)."""
+its discrete adjoint; SEULEX and its discrete adjoint; and the fused
+one-kernel Radau5 step)."""
 
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from janus_tpu_torch.solve.adjoint import radau_adjoint
 from janus_tpu_torch.solve.adjoint_dopri import dopri_adjoint
 from janus_tpu_torch.solve.adjoint_ndf import ndf_adjoint
 from janus_tpu_torch.solve.adjoint_rodas import rodas_adjoint
+from janus_tpu_torch.solve.adjoint_seulex import seulex_adjoint
 from janus_tpu_torch.solve.dopri import TABLEAUS, solve_erk
 from janus_tpu_torch.solve.events import Event
 from janus_tpu_torch.solve.hvp import radau_hvp
@@ -32,6 +34,7 @@ from janus_tpu_torch.solve.options import Options
 from janus_tpu_torch.solve.radau import solve_radau
 from janus_tpu_torch.solve.radau_fused import solve_radau_fused
 from janus_tpu_torch.solve.rodas import solve_rodas
+from janus_tpu_torch.solve.seulex import solve_seulex
 
 # method name -> fixed stage count (None: keep options.min_stages)
 _RADAU_STAGES = {"radau": None, "radau5": 3, "radau9": 5, "radau13": 7}
@@ -46,6 +49,7 @@ FEATURES = {
     "radau":        (True,  True,  True,  True),
     "radau_fused":  (False, False, False, False),
     "rodas":        (True,  True,  True,  True),
+    "seulex":       (True,  True,  True,  True),
 }
 
 # the reference's aliases (janus_tpu/solve/__init__.py); radau5/9/13 also
@@ -59,8 +63,7 @@ _ALIASES = {
 
 # the reference's methods that are not ported yet -> their ROADMAP.md Queue 1
 # item
-_UNPORTED = {"seulex": 16, "radaup": 17, "bdf2": 18,
-             "grk4t": 18}
+_UNPORTED = {"radaup": 17, "bdf2": 18, "grk4t": 18}
 
 
 def _canonical(method: str) -> str:
@@ -121,6 +124,8 @@ def solve_ivp(f: Callable, tspan, y0, method: str = "dopri5", args: Any = None,
     tangents=); 'bdf'/'ndf' (variable-order NDF, orders 1-5) and
     'bdf_classic' (classical BDF), with mass=, t_eval=, events=, dense=,
     quad=, the matrix-free stage solvers and, in terminal mode, tangents=;
+    'seulex' (extrapolated linearly implicit Euler, with mass=, t_eval=,
+    events=, dense=, quad=, step_args= and, in terminal mode, tangents=);
     and 'radau_fused' (Radau5 with the whole step attempt in one CUDA kernel;
     on the card f must be in models.problems.DEVICE_PROBLEMS). The
     reference's other methods raise NotImplementedError naming the
@@ -141,27 +146,29 @@ def solve_ivp(f: Callable, tspan, y0, method: str = "dopri5", args: Any = None,
     canonical = _canonical(method)
     _check_features(canonical, jac, mass, events, t_eval)
     if (tangents is not None or args_tangents is not None) \
-            and canonical not in ("radau", "rodas", "bdf"):
+            and canonical not in ("radau", "rodas", "bdf", "seulex"):
         raise ValueError("tangents= (internal-differentiation sensitivities)"
                          " is supported by the 'radau'/'radaup' methods, "
                          "'seulex', 'rodas' and 'bdf'; use torch.func.jvp "
                          "through the solve otherwise")
     if quad is not None and canonical not in ("radau", "rodas", "bdf",
-                                              "dopri5", "dopri853"):
+                                              "seulex", "dopri5",
+                                              "dopri853"):
         raise ValueError("quad= (running-cost quadratures) is supported by "
                          "the fixed-stage 'radau' methods (collocation-"
                          "weight rule, incl. sens_quad), 'radaup', 'rodas',"
                          " 'seulex', 'bdf' and 'dopri5'/'dopri853' (Gauss-"
                          "Legendre on the dense interpolant); integrate "
                          "the cost as an extra state otherwise")
-    if dense and canonical not in ("radau", "rodas", "bdf", "dopri5",
-                                   "dopri853"):
+    if dense and canonical not in ("radau", "rodas", "bdf", "seulex",
+                                   "dopri5", "dopri853"):
         raise ValueError("dense= (post-hoc Solution.interpolate) is "
                          "supported by the 'radau'/'radaup' methods, "
                          "'rodas', 'seulex', 'bdf' and "
                          "'dopri5'/'dopri853'; use t_eval= otherwise")
     if step_args is not None and canonical not in ("radau", "rodas",
-                                                   "dopri5", "dopri853"):
+                                                   "seulex", "dopri5",
+                                                   "dopri853"):
         raise ValueError("step_args= (per-accepted-step parameter slabs, "
                          "the reference's theta/nparams_step semantics) is "
                          "supported by the one-step adaptive methods "
@@ -181,6 +188,11 @@ def solve_ivp(f: Callable, tspan, y0, method: str = "dopri5", args: Any = None,
                            mass=mass, events=events, tangents=tangents,
                            args_tangents=args_tangents, quad=quad,
                            dense=dense, step_args=step_args, device=device)
+    if canonical == "seulex":
+        return solve_seulex(f, t0, tf, y0, args, options, t_eval, jac=jac,
+                            mass=mass, events=events, tangents=tangents,
+                            args_tangents=args_tangents, quad=quad,
+                            dense=dense, step_args=step_args, device=device)
     if canonical == "bdf":
         # variable order 1-5 with the NDF kappas (as scipy's BDF), or
         # classical BDF
@@ -205,7 +217,7 @@ def solve_ivp(f: Callable, tspan, y0, method: str = "dopri5", args: Any = None,
 
 
 # method -> the Queue 1 item of ROADMAP.md that brings its adjoint
-_ADJOINT_ITEMS = {"radaup": 17, "seulex": 16}
+_ADJOINT_ITEMS = {"radaup": 17}
 
 
 def solve_adjoint(f: Callable, tspan, y0, method: str = "radau",
@@ -225,11 +237,13 @@ def solve_adjoint(f: Callable, tspan, y0, method: str = "radau",
     neural-ODE training path; events=, cost=: see ``dopri_adjoint``) and
     'bdf'/'ndf'/'bdf_classic' (the discrete adjoint of the NDF/BDF family,
     which takes events=, cost=, n_alg=, mass=, jac=: see ``ndf_adjoint``;
-    'bdf_classic' replays classical BDF). With
+    'bdf_classic' replays classical BDF) and 'seulex' (the discrete
+    adjoint of the extrapolation ladder, which takes events=, cost=,
+    n_alg=, mass=, jac=: see ``seulex_adjoint``). With
     terminal events= they return (y*, t*), or (ys, y*, t*) with t_eval=.
-    Aliases follow solve_ivp's table. The reference's other families
-    ('radaup', 'seulex') raise
-    NotImplementedError until their adjoints are ported (ROADMAP.md Queue
+    Aliases follow solve_ivp's table. The reference's other family
+    ('radaup') raises
+    NotImplementedError until its adjoint is ported (ROADMAP.md Queue
     1); a method with no reverse mode raises ValueError."""
     method = method.lower()
     if method in _RADAU_STAGES:
@@ -252,23 +266,27 @@ def solve_adjoint(f: Callable, tspan, y0, method: str = "radau",
             kw = {"ndf": False, **kw}
         return ndf_adjoint(f, tspan, y0, args=args, options=options,
                            t_eval=t_eval, **kw)
+    if canonical == "seulex":
+        return seulex_adjoint(f, tspan, y0, args=args, options=options,
+                              t_eval=t_eval, **kw)
     if canonical in _ADJOINT_ITEMS:
         raise NotImplementedError(
             f"solve_adjoint: the adjoint of method {method!r} is not ported "
             f"to janus_tpu_torch yet (ROADMAP.md Queue 1, item "
             f"{_ADJOINT_ITEMS[canonical]}); ported: 'radau', 'rodas', "
-            "'bdf', 'dopri5', 'dopri853'")
+            "'bdf', 'seulex', 'dopri5', 'dopri853'")
     raise ValueError(
         f"solve_adjoint: no reverse mode for method {method!r}; available: "
-        "radau (continuous), rodas, bdf and dopri5/dopri853 (discrete). "
+        "radau (continuous), rodas, bdf, seulex and dopri5/dopri853 "
+        "(discrete). "
         "Forward sensitivities: solve_ivp(tangents=)")
 
 
 __all__ = [
     "solve_ivp", "solve_erk", "solve_radau", "solve_radau_fused",
-    "solve_rodas", "solve_bdf", "Solution", "Options", "Event", "FEATURES",
+    "solve_rodas", "solve_bdf", "solve_seulex", "Solution", "Options", "Event", "FEATURES",
     "radau_adjoint", "radau_hvp", "rodas_adjoint", "dopri_adjoint",
-    "ndf_adjoint",
+    "ndf_adjoint", "seulex_adjoint",
     "solve_adjoint",
     "RUNNING", "SUCCESS", "MAX_STEPS", "STEP_UNDERFLOW", "NEWTON_STALL",
     "EVENT_TERMINATED", "PARAMS_EXHAUSTED",

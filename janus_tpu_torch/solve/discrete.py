@@ -1,5 +1,5 @@
-"""The discrete adjoints' shared Function and backward sweep (rodas, dopri;
-the Function and the sweep's pieces also NDF's).
+"""The discrete adjoints' shared Function and backward sweep (rodas, dopri,
+seulex; the Function and the sweep's pieces also NDF's).
 
 A discrete adjoint differentiates the solver's own step map: one accepted
 step is a closed-form function y_{n+1} = Φ(t_n, h_n, y_n, θ) of the recorded
@@ -13,6 +13,10 @@ family supplies, in ``cfg``:
 - ``replay(t, h, y, dleaves, live, want_interp)``: the step map Φ, and
   with want_interp also the step's dense interpolant θ [M, T] -> [M, T, D];
   ``live`` [M] flags the lanes replaying a live slot;
+- optionally ``level_ring``, the name of an integer mesh ring (SEULEX's
+  accepted level): the replay then also takes the slot's column of it and,
+  as a Python int, its largest entry over the slot's live lanes (read with
+  the sweep's one host read), so that it runs no level above that;
 - ``ydot(t, y, dleaves)``: the true state velocity at a boundary;
 - ``events`` (terminal), ``cost``, ``rebuild`` (the args tree from its
   differentiable leaves) and ``entry``, the public function whose
@@ -116,23 +120,23 @@ def sweep(cfg, mesh, nacc, t0b, y0b, t_end, y_end, ev_idx, dleaves, ybar,
         qb = torch.zeros_like(l_end) if qbar is None \
             else qbar.to(dtype).reshape(l_end.shape)      # [M, Q]
 
-    def step(t, h, y, dl, live):
+    def step(t, h, y, dl, live, extra):
         if not use_cost:
-            return replay(t, h, y, dl, live, False)
-        y_new, interp = replay(t, h, y, dl, live, True)
+            return replay(t, h, y, dl, live, False, *extra)
+        y_new, interp = replay(t, h, y, dl, live, True, *extra)
         q_inc = cm.gl3_increment(lambda tt, yy: lfun(tt, yy, dl), t, h,
                                  interp, torch.ones_like(t))
         return y_new, q_inc
 
     triggered = ev_idx >= 0
 
-    def evt_endpoint(t, h, y, dl, th0, live):
+    def evt_endpoint(t, h, y, dl, th0, live, extra):
         # (y*, t*[, the last quadrature increment]) of the triggering step
         # as a differentiable map: replay the step and its interpolant, and
         # re-polish θ* by TWO Newton steps from the recorded root; starting
         # converged, the polished iterate's derivative is the implicit-
         # function derivative to O(residual²)
-        _, interp = replay(t, h, y, dl, live, True)
+        _, interp = replay(t, h, y, dl, live, True, *extra)
         one_hot = (torch.arange(len(specs), device=y.device)[:, None]
                    == torch.clamp(ev_idx, min=0)[None, :]).to(dtype)
 
@@ -152,9 +156,17 @@ def sweep(cfg, mesh, nacc, t0b, y0b, t_end, y_end, ev_idx, dleaves, ybar,
         return outs
 
     grads = [torch.zeros_like(leaf) for leaf in dleaves]
-    n_live, evt_slots = live_slots(nacc, triggered, cap)
+    ring = cfg.get("level_ring")
+    if ring is None:
+        n_live, evt_slots = live_slots(nacc, triggered, cap)
+    else:
+        slot = torch.arange(cap, device=nacc.device)[None, :]
+        n_live, evt_slots, tops = live_slots(
+            nacc, triggered, cap,
+            torch.where(slot < nacc[:, None], mesh[ring], -1).amax(dim=0))
     for k in range(n_live - 1, -1, -1):
         live = k < nacc                                   # [M]
+        extra = () if ring is None else (mesh[ring][:, k], tops[k])
         tk = torch.where(live, mesh["t"][:, k], t0b)
         hk = torch.where(live, mesh["h"][:, k], 1.0)
         yk = torch.where(live[:, None], mesh["y"][:, k], y0b)
@@ -162,7 +174,8 @@ def sweep(cfg, mesh, nacc, t0b, y0b, t_end, y_end, ev_idx, dleaves, ybar,
         is_evt = live & triggered & (k == nacc - 1)
         if k in evt_slots:
             lam_in = torch.where(is_evt[:, None], 0.0, lam_in)
-        pull = vjp(lambda yy, dl: step(tk, hk, yy, dl, live), yk, dleaves)[1]
+        pull = vjp(lambda yy, dl: step(tk, hk, yy, dl, live, extra), yk,
+                   dleaves)[1]
         if use_cost:
             # q is the sum of the increments: each live step takes all of q̄
             qb_k = torch.where((live & ~is_evt)[:, None], qb, 0.0)
@@ -174,7 +187,8 @@ def sweep(cfg, mesh, nacc, t0b, y0b, t_end, y_end, ev_idx, dleaves, ybar,
                               0.0, 1.0)
             th0 = torch.where(is_evt, th0, 0.5)
             pull_e = vjp(lambda yy, dl: evt_endpoint(tk, hk, yy, dl, th0,
-                                                     live), yk, dleaves)[1]
+                                                     live, extra), yk,
+                         dleaves)[1]
             ct = (torch.where(is_evt[:, None], lam, 0.0),
                   torch.where(is_evt, tbar, 0.0))
             if use_cost:
@@ -192,14 +206,19 @@ def sweep(cfg, mesh, nacc, t0b, y0b, t_end, y_end, ev_idx, dleaves, ybar,
     return lam0, grads, t0bar, tfbar
 
 
-def live_slots(nacc, triggered, cap):
+def live_slots(nacc, triggered, cap, per_slot=None):
     """One host read before a backward loop: (the number of slots any lane
     filled, capped at the ring's capacity; the set of slots where a lane's
     terminal event step lies). Every slot above the first is dead for
-    every lane, so the loop runs from it down to 0."""
-    host = torch.cat([nacc.max()[None],
-                      torch.where(triggered, nacc - 1, -1)]).tolist()
-    return min(host[0], cap), set(host[1:]) - {-1}
+    every lane, so the loop runs from it down to 0. ``per_slot`` [cap]
+    (integers) is read in the same sync and returned third, as a list."""
+    m = nacc.shape[0]
+    parts = [nacc.max()[None], torch.where(triggered, nacc - 1, -1)]
+    if per_slot is not None:
+        parts.append(per_slot.to(nacc.dtype))
+    host = torch.cat(parts).tolist()
+    out = (min(host[0], cap), set(host[1:m + 1]) - {-1})
+    return out if per_slot is None else out + (host[m + 1:],)
 
 
 def overflow_nan(nacc, cap, lam0, grads):

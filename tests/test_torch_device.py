@@ -138,7 +138,9 @@ def test_no_module_of_the_port_imports_jax():
     for module in ("solve/dopri.py", "solve/adjoint_dopri.py",
                    "solve/discrete.py", "solve/hvp.py", "diag/record.py",
                    "linalg/qr.py", "models/neural.py", "bench/dopri.py",
-                   "solve/ndf.py", "solve/adjoint_ndf.py", "bench/ndf.py"):
+                   "solve/ndf.py", "solve/adjoint_ndf.py", "bench/ndf.py",
+                   "solve/seulex.py", "solve/adjoint_seulex.py",
+                   "bench/seulex.py"):
         assert f"janus_tpu_torch/{module}" in names, module
     pattern = re.compile(r"^\s*(import|from)\s+(jax|janus_tpu)([.\s]|$)",
                          re.MULTILINE)
@@ -216,6 +218,24 @@ def test_ndf_family_obeys_the_device_rule(entry, no_card):
     else:
         def run(y, **kw):
             return ndf_adjoint(_decay, (0.0, 1.0), y, args=3.0, **kw)
+    _obeys_the_device_rule(run)
+
+
+@pytest.mark.parametrize("entry", ["seulex", "seulex_adjoint"])
+def test_seulex_family_obeys_the_device_rule(entry, no_card):
+    """As the NDF family: SEULEX's solve and its adjoint."""
+    from janus_tpu_torch.solve import seulex_adjoint
+    if entry == "seulex":
+        def run(y, **kw):
+            return solve_ivp(_decay, (0.0, 1.0), y, method="seulex",
+                             args=3.0, rtol=1e-6, atol=1e-9, **kw).y
+    else:
+        def run(y, **kw):
+            return seulex_adjoint(_decay, (0.0, 1.0), y, args=3.0, **kw)
+    _obeys_the_device_rule(run)
+
+
+def _obeys_the_device_rule(run):
     with pytest.raises(ValueError, match="pass y0 as a CPU tensor"):
         run(Y0)
     got = run(Y0, device="cpu")

@@ -68,6 +68,15 @@ K=2 IND) with kernel_lu=True launches K1 and K2 and matches the plain
 pivot-free LU with all eight counters equal, y to 1e-10 and sens to 1e-5
 relative to their largest entries; 4 lanes of the ndf_adjoint gradient of
 the stiff adjoint configuration (through K1/K2) against the CPU to 1e-7.
+
+SEULEX (``janus_tpu_torch.bench.seulex``, chip_smoke's phase 18) on the
+card: solve_seulex on 4,096 headline lanes (K=2 IND) with kernel_lu=True
+launches K1 and K2 and matches the plain pivot-free LU with all seven
+counters equal, y to 1e-10 and sens to 1e-8; seulex_adjoint's gradient of
+the stiff adjoint configuration (the recording forward through K1/K2) on
+64 lanes: the replay reproduces the recorded mesh (1e-12), autograd of the
+frozen replay chain agrees to 1e-10, d/dμ of 3 lanes to central
+differences within 1e-4, and 4 lanes against the CPU to 1e-7.
 """
 
 import numpy as np
@@ -78,6 +87,7 @@ from janus_tpu_torch.bench import dopri as dopri_probe
 from janus_tpu_torch.bench import mol
 from janus_tpu_torch.bench import ndf as ndf_probe
 from janus_tpu_torch.bench import rodas as rodas_probe
+from janus_tpu_torch.bench import seulex as seulex_probe
 from janus_tpu_torch.interop import tree_to_torch
 from janus_tpu_torch.linalg import gmres as gm
 from janus_tpu_torch.models.problems import robertson_rhs, vdp_rhs
@@ -441,4 +451,33 @@ def test_ndf_adjoint_on_card_matches_cpu():
     ref = ndf_probe.gradient(4, torch.float64, torch.device("cpu"))
     for a, b in zip(got[1:], ref[1:]):
         assert a.is_cuda and bool(torch.isfinite(a).all())
+        assert float((a.cpu() - b).abs().max() / b.abs().max()) <= 1e-7
+
+
+@pytest.mark.gpu
+def test_seulex_kernels_on_card_match_plain_lu():
+    dev = _card()
+    smalllu.reset_launch_counts()
+    got = seulex_probe.forward_solve(dev, True, m=4096)
+    assert smalllu.lu_factor_t.launches > 0 and smalllu.lu_solve_t.launches > 0
+    ref = seulex_probe.forward_solve(dev, False, m=4096)
+    assert bool((got.status == 1).all())
+    for k in seulex_probe.STATS:
+        assert torch.equal(got.stats[k], ref.stats[k]), k
+    for k, tol in (("y", 1e-10), ("sens", 1e-8)):
+        a, b = getattr(got, k), getattr(ref, k)
+        assert float((a - b).abs().max() / b.abs().max()) <= tol, k
+
+
+@pytest.mark.gpu
+def test_seulex_adjoint_on_card_checks():
+    dev = _card()
+    g = seulex_probe.gradient(64, torch.float64, dev)
+    assert all(x.is_cuda and bool(torch.isfinite(x).all()) for x in g[1:])
+    errs = seulex_probe.check_gradient(g, torch.float64, dev)
+    assert errs["replay"] <= seulex_probe.REPLAY_BOUND, errs
+    assert errs["chain"] <= 1e-10 and errs["fd_mu"] <= 1e-4, errs
+    got = seulex_probe.gradient(4, torch.float64, dev)
+    ref = seulex_probe.gradient(4, torch.float64, torch.device("cpu"))
+    for a, b in zip(got[1:], ref[1:]):
         assert float((a.cpu() - b).abs().max() / b.abs().max()) <= 1e-7

@@ -279,6 +279,6 @@ def test_methods_without_step_args():
     with pytest.raises(ValueError, match="step_args"):
         solve_ivp(lambda t, y, a: -y, (0.0, 1.0), y0, method="radau_fused",
                   step_args=torch.ones((4,), dtype=torch.float64))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        solve_ivp(lambda t, y, a: -y, (0.0, 1.0), y0, method="seulex",
+    with pytest.raises(NotImplementedError, match="item 17"):
+        solve_ivp(lambda t, y, a: -y, (0.0, 1.0), y0, method="radaup",
                   step_args=torch.ones((4,), dtype=torch.float64))

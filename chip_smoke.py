@@ -140,7 +140,26 @@ Phases, one line each (everything is made from fixed seeds):
     through K1/K2: ``launches_seulex_adjoint``): finite, the replay of the
     recorded mesh, autograd of the frozen replay chain (1e-10), d/dmu of
     three lanes against central differences (1e-4) and 4 lanes against the
-    CPU (1e-7).
+    CPU (1e-7);
+19. the variable-order Radau ladder, its adjoint and the legacy steppers
+    (janus_tpu_torch.bench.radaup, its shortest check): solve_radau_vo
+    (stages 1..7) on the 65,536 headline lanes (mu = 1e3, rtol 1e-6, f64,
+    pivoting=False, K=2 IND) through K1/K2 (K1 factors each order's real
+    and split-complex blocks, K2 does every Newton, error-estimate and
+    tangent solve; ``launches_radaup`` in the kernels line) and through
+    the plain pivot-free LU, one turn each: every lane SUCCESS, the seven
+    counters, y and sens equal to the bit, 8 lanes (and 8 of a mu =
+    logspace(1, 3) solve, where the ladder mixes orders) against scipy's
+    Radau; solve_adjoint(method='radaup') at 8,192 lanes (mu = logspace(1,
+    3), rtol 1e-4, adjoint_steps=128, f64, the forward through K1/K2:
+    ``launches_radaup_adjoint``): finite, d/dmu of three lanes against
+    central differences (1e-4) and 4 lanes against the CPU (1e-7); bdf2
+    and grk4t on the 65,536-lane chip-matrix batch (mu = 10^U(1, 3), rtol
+    1e-4, f64) through K1/K2 (``launches_bdf2``, ``launches_grk4t``) and
+    the plain pivot-free LU: counters and y equal to the bit, success
+    fraction 1, 8 lanes against scipy's Radau; odeint_fixed rk4 on 65,536
+    harmonic lanes, its gradient through the checkpointed loop against the
+    CPU (1e-10).
 
 Then one JSON line with the kernels' records, nvidia-smi's line, and last
 {"ok": true, "device": {...}}. Any failed check raises; no phase's failure
@@ -190,6 +209,7 @@ def main():
     from janus_tpu_torch.bench import mol
     from janus_tpu_torch.bench import ndf as ndf_probe
     from janus_tpu_torch.bench import rodas as rodas_probe
+    from janus_tpu_torch.bench import radaup as radaup_probe
     from janus_tpu_torch.bench import seulex as seulex_probe
     from janus_tpu_torch.models.problems import (DEVICE_PROBLEMS,
                                                  robertson_rhs, vdp_jac,
@@ -670,6 +690,16 @@ def main():
         launches_seulex=seulex_report["forward"]["launches"],
         launches_seulex_adjoint=seulex_report["adjoint_f64"]["launches"])
     print(f"[phase 18] {time.perf_counter() - t18:.1f} s", flush=True)
+
+    # ---- 19. radaup, its adjoint, bdf2, grk4t, odeint_fixed ----------------------
+    t19 = time.perf_counter()
+    radaup_report = radaup_probe.run(dev, smoke=True)  # RadaupCheckFailed
+    route.update(
+        launches_radaup=radaup_report["forward"]["launches"],
+        launches_radaup_adjoint=radaup_report["adjoint_f64"]["launches"],
+        launches_bdf2=radaup_report["bdf2_f64"]["launches"],
+        launches_grk4t=radaup_report["grk4t_f64"]["launches"])
+    print(f"[phase 19] {time.perf_counter() - t19:.1f} s", flush=True)
 
     k1, k1p, k2, k2p, extra = times[(torch.float64, 4)]
     (b1, by1, lib1), (b2, by2, lib2) = (extra["lu_factor_t"],

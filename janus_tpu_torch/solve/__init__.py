@@ -1,11 +1,13 @@
-"""Lockstep masked adaptive steppers (the ported subset: the explicit
-Dormand–Prince pairs and their discrete adjoint; fixed-stage radau, with the
-dense stage LU or the matrix-free GMRES / tridiagonal stage solvers, mass
-matrices, dense output, t_eval, quadratures, events, step_args, step
-recording and the QR fallback; its continuous adjoint and Hessian-vector
-products; RODAS4 and its discrete adjoint; the variable-order NDF/BDF and
-its discrete adjoint; SEULEX and its discrete adjoint; and the fused
-one-kernel Radau5 step)."""
+"""Lockstep masked adaptive steppers: every method of the reference. The
+explicit Dormand–Prince pairs and their discrete adjoint; fixed-stage radau,
+with the dense stage LU or the matrix-free GMRES / tridiagonal stage
+solvers, mass matrices, dense output, t_eval, quadratures, events,
+step_args, step recording and the QR fallback; its continuous adjoint and
+Hessian-vector products; the variable-order Radau ladder (radaup) and its
+continuous adjoint; RODAS4 and its discrete adjoint; the variable-order
+NDF/BDF and its discrete adjoint; SEULEX and its discrete adjoint; the
+fused one-kernel Radau5 step; the legacy steppers BDF2 and GRK4T; and the
+fixed-grid reverse-differentiable ``fixed.odeint_fixed``."""
 
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from janus_tpu_torch.solve.adjoint_dopri import dopri_adjoint
 from janus_tpu_torch.solve.adjoint_ndf import ndf_adjoint
 from janus_tpu_torch.solve.adjoint_rodas import rodas_adjoint
 from janus_tpu_torch.solve.adjoint_seulex import seulex_adjoint
+from janus_tpu_torch.solve.bdf import solve_bdf2
 from janus_tpu_torch.solve.dopri import TABLEAUS, solve_erk
 from janus_tpu_torch.solve.events import Event
 from janus_tpu_torch.solve.hvp import radau_hvp
@@ -33,23 +36,28 @@ from janus_tpu_torch.solve.ndf import solve_bdf
 from janus_tpu_torch.solve.options import Options
 from janus_tpu_torch.solve.radau import solve_radau
 from janus_tpu_torch.solve.radau_fused import solve_radau_fused
+from janus_tpu_torch.solve.radaup import solve_radau_vo
 from janus_tpu_torch.solve.rodas import solve_rodas
+from janus_tpu_torch.solve.rosenbrock import solve_ros4
 from janus_tpu_torch.solve.seulex import solve_seulex
 
 # method name -> fixed stage count (None: keep options.min_stages)
 _RADAU_STAGES = {"radau": None, "radau5": 3, "radau9": 5, "radau13": 7}
 
-# method -> feature support matrix, the ported rows of the reference's.
-# solve_ivp RAISES on an unsupported feature instead of dropping it.
+# method -> feature support matrix, the reference's. solve_ivp RAISES on an
+# unsupported feature instead of dropping it.
 FEATURES = {
     #                jac    mass   events t_eval
     "dopri5":       (False, False, True,  True),
     "dopri853":     (False, False, True,  True),
-    "bdf":          (True,  True,  True,  True),
     "radau":        (True,  True,  True,  True),
+    "radaup":       (True,  True,  True,  True),
     "radau_fused":  (False, False, False, False),
-    "rodas":        (True,  True,  True,  True),
+    "bdf":          (True,  True,  True,  True),
+    "bdf2":         (True,  False, False, True),   # legacy: subsumed by bdf
     "seulex":       (True,  True,  True,  True),
+    "rodas":        (True,  True,  True,  True),
+    "grk4t":        (True,  False, False, True),   # legacy: subsumed by rodas
 }
 
 # the reference's aliases (janus_tpu/solve/__init__.py); radau5/9/13 also
@@ -61,25 +69,14 @@ _ALIASES = {
     "ros4": "grk4t", "rosenbrock": "grk4t",
 }
 
-# the reference's methods that are not ported yet -> their ROADMAP.md Queue 1
-# item
-_UNPORTED = {"radaup": 17, "bdf2": 18, "grk4t": 18}
-
-
 def _canonical(method: str) -> str:
-    """The method's canonical name; NotImplementedError (naming its item)
-    for a method of the reference that is not ported, ValueError for a name
-    the reference does not know either."""
+    """The method's canonical name; ValueError for a name the reference
+    does not know either."""
     canonical = _ALIASES.get(method, method)
-    if canonical in _UNPORTED:
-        raise NotImplementedError(
-            f"method {method!r} is not ported to janus_tpu_torch yet "
-            f"(ROADMAP.md Queue 1, item {_UNPORTED[canonical]}); ported: "
-            f"{sorted(set(FEATURES) | set(_RADAU_STAGES))}")
     if canonical not in FEATURES:
         raise ValueError(f"unknown method {method!r}; known: "
-                         f"{sorted(set(FEATURES) | set(_UNPORTED))} and the "
-                         f"aliases {sorted(_ALIASES)}")
+                         f"{sorted(FEATURES)} and the aliases "
+                         f"{sorted(_ALIASES)}")
     return canonical
 
 
@@ -109,28 +106,31 @@ def solve_ivp(f: Callable, tspan, y0, method: str = "dopri5", args: Any = None,
               **opt_kw) -> Solution:
     """Batched initial-value-problem solve, as ``janus_tpu.solve.solve_ivp``.
 
-    Ported methods: 'dopri5' (the default) and 'dopri853' (aliases 'rk45',
-    'dop853': explicit, with t_eval=, events=, quad=, dense=, step_args=);
-    'radau' (stage count from options.min_stages),
-    'radau5'/'radau9'/'radau13' (s = 3/5/7), fixed stage count, with
-    mass= ([D, D] or [M, D, D], singular allowed) and, by
+    Methods, every one of the reference's: 'dopri5' (the default) and
+    'dopri853' (aliases 'rk45', 'dop853': explicit, with t_eval=, events=,
+    quad=, dense=, step_args=); 'radau' (stage count from
+    options.min_stages), 'radau5'/'radau9'/'radau13' (s = 3/5/7), fixed
+    stage count, with mass= ([D, D] or [M, D, D], singular allowed) and, by
     Options(stage_solver='gmres'|'tridiag', precond='tridiag'|'lines'|
     'block'), matrix-free stage solves for method-of-lines systems, and
     with t_eval= (Solution.ys, and sens_ys with tangents=), dense=N
     (Solution.interpolate), quad= (Solution.quad, and sens_quad with
     tangents=) and events= (``solve.events.Event``; Solution.event_t,
-    event_y, event_idx, and sens_t with tangents=); 'rodas' (RODAS4, with
-    mass=, t_eval=, events=, dense=, quad= and, in terminal mode,
-    tangents=); 'bdf'/'ndf' (variable-order NDF, orders 1-5) and
-    'bdf_classic' (classical BDF), with mass=, t_eval=, events=, dense=,
-    quad=, the matrix-free stage solvers and, in terminal mode, tangents=;
-    'seulex' (extrapolated linearly implicit Euler, with mass=, t_eval=,
-    events=, dense=, quad=, step_args= and, in terminal mode, tangents=);
-    and 'radau_fused' (Radau5 with the whole step attempt in one CUDA kernel;
-    on the card f must be in models.problems.DEVICE_PROBLEMS). The
-    reference's other methods raise NotImplementedError naming the
-    ROADMAP.md item that ports them; a name the reference does not know
-    raises ValueError.
+    event_y, event_idx, and sens_t with tangents=); 'radaup' (the
+    variable-order ladder, stages 1..7 unless options set a ladder of
+    their own; 'radau' with min_stages != max_stages is the same ladder),
+    with what fixed-stage radau takes but step_args= and sens_quad;
+    'rodas' (RODAS4, with mass=, t_eval=, events=, dense=, quad= and, in
+    terminal mode, tangents=); 'bdf'/'ndf' (variable-order NDF, orders
+    1-5) and 'bdf_classic' (classical BDF), with mass=, t_eval=, events=,
+    dense=, quad=, the matrix-free stage solvers and, in terminal mode,
+    tangents=; 'seulex' (extrapolated linearly implicit Euler, with mass=,
+    t_eval=, events=, dense=, quad=, step_args= and, in terminal mode,
+    tangents=); 'radau_fused' (Radau5 with the whole step attempt in one
+    CUDA kernel; on the card f must be in models.problems.DEVICE_PROBLEMS);
+    and the legacy steppers 'bdf2' (variable-step BDF2) and 'grk4t'
+    (aliases 'ros4', 'rosenbrock': Kaps-Rentrop GRK4T), with jac= and
+    t_eval= only. A name the reference does not know raises ValueError.
     options: Options(...); or pass rtol=…, atol=… etc. as keywords.
     device: where a y0 that is not a torch tensor goes (default: the CUDA
     card; with no card, pass a CPU tensor or device='cpu'). A torch y0
@@ -146,13 +146,14 @@ def solve_ivp(f: Callable, tspan, y0, method: str = "dopri5", args: Any = None,
     canonical = _canonical(method)
     _check_features(canonical, jac, mass, events, t_eval)
     if (tangents is not None or args_tangents is not None) \
-            and canonical not in ("radau", "rodas", "bdf", "seulex"):
+            and canonical not in ("radau", "radaup", "rodas", "bdf",
+                                  "seulex"):
         raise ValueError("tangents= (internal-differentiation sensitivities)"
                          " is supported by the 'radau'/'radaup' methods, "
                          "'seulex', 'rodas' and 'bdf'; use torch.func.jvp "
                          "through the solve otherwise")
-    if quad is not None and canonical not in ("radau", "rodas", "bdf",
-                                              "seulex", "dopri5",
+    if quad is not None and canonical not in ("radau", "radaup", "rodas",
+                                              "bdf", "seulex", "dopri5",
                                               "dopri853"):
         raise ValueError("quad= (running-cost quadratures) is supported by "
                          "the fixed-stage 'radau' methods (collocation-"
@@ -160,8 +161,8 @@ def solve_ivp(f: Callable, tspan, y0, method: str = "dopri5", args: Any = None,
                          " 'seulex', 'bdf' and 'dopri5'/'dopri853' (Gauss-"
                          "Legendre on the dense interpolant); integrate "
                          "the cost as an extra state otherwise")
-    if dense and canonical not in ("radau", "rodas", "bdf", "seulex",
-                                   "dopri5", "dopri853"):
+    if dense and canonical not in ("radau", "radaup", "rodas", "bdf",
+                                   "seulex", "dopri5", "dopri853"):
         raise ValueError("dense= (post-hoc Solution.interpolate) is "
                          "supported by the 'radau'/'radaup' methods, "
                          "'rodas', 'seulex', 'bdf' and "
@@ -201,23 +202,33 @@ def solve_ivp(f: Callable, tspan, y0, method: str = "dopri5", args: Any = None,
                          args_tangents=args_tangents, quad=quad,
                          dense=dense, ndf=method != "bdf_classic",
                          device=device)
-    stages = _RADAU_STAGES[method]
+    if canonical == "bdf2":
+        return solve_bdf2(f, t0, tf, y0, args, options, t_eval, jac=jac,
+                          device=device)
+    if canonical == "grk4t":
+        return solve_ros4(f, t0, tf, y0, args, options, t_eval, jac=jac,
+                          device=device)
+    stages = _RADAU_STAGES.get(method)
     if stages is not None:
         options = options.replace(min_stages=stages, max_stages=stages)
+    if method == "radaup" and options.min_stages == options.max_stages:
+        # variable order by default: stages 1..7
+        options = options.replace(min_stages=1, max_stages=7)
     if options.min_stages != options.max_stages:
-        raise NotImplementedError(
-            "variable-order radau (min_stages != max_stages) is not ported "
-            "to janus_tpu_torch yet; it comes with radaup (ROADMAP.md "
-            "Queue 1)")
+        if step_args is not None:
+            raise ValueError("step_args= needs a fixed-stage radau (e.g. "
+                             "method='radau5'); the variable-order ladder "
+                             "re-attempts steps across orders with no "
+                             "slab-row contract")
+        return solve_radau_vo(f, t0, tf, y0, args, options, t_eval, jac=jac,
+                              mass=mass, events=events, tangents=tangents,
+                              args_tangents=args_tangents, quad=quad,
+                              dense=dense, device=device)
     return solve_radau(f, t0, tf, y0, args, options, t_eval,
                        jac=jac, mass=mass, events=events,
                        tangents=tangents, args_tangents=args_tangents,
                        quad=quad, dense=dense, step_args=step_args,
                        device=device)
-
-
-# method -> the Queue 1 item of ROADMAP.md that brings its adjoint
-_ADJOINT_ITEMS = {"radaup": 17}
 
 
 def solve_adjoint(f: Callable, tspan, y0, method: str = "radau",
@@ -231,7 +242,10 @@ def solve_adjoint(f: Callable, tspan, y0, method: str = "radau",
 
     method: 'radau' (and 'radau5'/'radau9'/'radau13'; the continuous
     adjoint, which also takes events=, cost=, n_alg=, checkpoints=, mass=,
-    jac=: see ``radau_adjoint``) and 'rodas' (the discrete adjoint, which
+    jac=: see ``radau_adjoint``), 'radaup' (the same continuous adjoint
+    over the variable-order forward ladder, stages 1..7 unless options set
+    a ladder: per-lane order adaptivity in the recorded mesh, the backward
+    sweep at the ladder's top order) and 'rodas' (the discrete adjoint, which
     takes events=, cost=, n_alg=, mass=, jac=: see ``rodas_adjoint``) and
     'dopri5'/'dopri853' (the discrete adjoint of the explicit family, the
     neural-ODE training path; events=, cost=: see ``dopri_adjoint``) and
@@ -241,10 +255,8 @@ def solve_adjoint(f: Callable, tspan, y0, method: str = "radau",
     adjoint of the extrapolation ladder, which takes events=, cost=,
     n_alg=, mass=, jac=: see ``seulex_adjoint``). With
     terminal events= they return (y*, t*), or (ys, y*, t*) with t_eval=.
-    Aliases follow solve_ivp's table. The reference's other family
-    ('radaup') raises
-    NotImplementedError until its adjoint is ported (ROADMAP.md Queue
-    1); a method with no reverse mode raises ValueError."""
+    Aliases follow solve_ivp's table. A method with no reverse mode
+    ('bdf2', 'grk4t' and its aliases, 'radau_fused') raises ValueError."""
     method = method.lower()
     if method in _RADAU_STAGES:
         stages = _RADAU_STAGES[method]
@@ -252,6 +264,14 @@ def solve_adjoint(f: Callable, tspan, y0, method: str = "radau",
             options = (options if options is not None else Options()).replace(
                 min_stages=stages, max_stages=stages)
         return radau_adjoint(f, tspan, y0, args=args, options=options,
+                             t_eval=t_eval, **kw)
+    if method == "radaup":
+        # variable order by default, as in solve_ivp: the forward solve is
+        # the ladder, the backward sweep runs at its top order
+        opts = options if options is not None else Options()
+        if opts.min_stages == opts.max_stages:
+            opts = opts.replace(min_stages=1, max_stages=7)
+        return radau_adjoint(f, tspan, y0, args=args, options=opts,
                              t_eval=t_eval, **kw)
     canonical = _ALIASES.get(method, method)
     if canonical == "rodas":
@@ -269,22 +289,16 @@ def solve_adjoint(f: Callable, tspan, y0, method: str = "radau",
     if canonical == "seulex":
         return seulex_adjoint(f, tspan, y0, args=args, options=options,
                               t_eval=t_eval, **kw)
-    if canonical in _ADJOINT_ITEMS:
-        raise NotImplementedError(
-            f"solve_adjoint: the adjoint of method {method!r} is not ported "
-            f"to janus_tpu_torch yet (ROADMAP.md Queue 1, item "
-            f"{_ADJOINT_ITEMS[canonical]}); ported: 'radau', 'rodas', "
-            "'bdf', 'seulex', 'dopri5', 'dopri853'")
     raise ValueError(
         f"solve_adjoint: no reverse mode for method {method!r}; available: "
-        "radau (continuous), rodas, bdf, seulex and dopri5/dopri853 "
-        "(discrete). "
-        "Forward sensitivities: solve_ivp(tangents=)")
+        "radau/radaup (continuous), rodas, bdf, seulex and dopri5/dopri853 "
+        "(discrete). Forward sensitivities: solve_ivp(tangents=)")
 
 
 __all__ = [
     "solve_ivp", "solve_erk", "solve_radau", "solve_radau_fused",
-    "solve_rodas", "solve_bdf", "solve_seulex", "Solution", "Options", "Event", "FEATURES",
+    "solve_radau_vo", "solve_rodas", "solve_bdf", "solve_seulex",
+    "solve_bdf2", "solve_ros4", "Solution", "Options", "Event", "FEATURES",
     "radau_adjoint", "radau_hvp", "rodas_adjoint", "dopri_adjoint",
     "ndf_adjoint", "seulex_adjoint",
     "solve_adjoint",

@@ -61,8 +61,15 @@ How the sweep is built:
   backward step of an event lane is the partial step t* → t_n on the
   step's polynomial (θ_end = (t*−t_n)/h_n).
 
-A variable-order forward ladder is the reference's and raises
-``NotImplementedError`` here until it is ported.
+- a variable-order forward (``min_stages != max_stages``, the radaup
+  ladder of ``solve.radaup``): the recorded mesh stores each lane's
+  collocation polynomial zero-padded to the ladder's top stage count, so
+  the padded power basis evaluates the lane's own interpolant, and the
+  backward sweep integrates the linear adjoint ODE at the ladder's top
+  order on that mesh: the order adaptivity lives in the forward mesh. A
+  ladder of one order is the fixed-stage adjoint. Under
+  ``Options(kernel_lu=True)`` the forward goes through K1/K2 and the
+  backward runs the plain LU, as on the fixed-stage path.
 
 Accuracy contract: gradients match jvp/FD through the solve to O(rtol)
 (discretize-then-optimize and optimize-then-discretize differ by the local
@@ -92,6 +99,7 @@ from janus_tpu_torch.solve.radau import (_factorize, _gmres_block_core,
                                          _gmres_mass_ops, _HostSyncs,
                                          default_jacobian, solve_radau)
 from janus_tpu_torch.solve.radau_tables import radau_tableau
+from janus_tpu_torch.solve.radaup import ladder_orders, solve_radau_vo
 
 
 def radau_adjoint(f: Callable, tspan, y0, args=None,
@@ -145,16 +153,15 @@ def radau_adjoint(f: Callable, tspan, y0, args=None,
     lane's later segments are zero-length (t* → t*) and its samples
     strictly past t* are NaN.
 
+    min_stages != max_stages: the forward solve is the variable-order
+    ladder (``solve.radaup.solve_radau_vo``) and the backward sweep runs at
+    the ladder's top order (module docstring).
+
     The host syncs of the last backward sweep are in
     ``radau_adjoint.host_syncs`` (the forward's in
-    ``solve_radau.host_syncs``).
+    ``solve_radau.host_syncs``, or ``solve_radau_vo.host_syncs``).
     """
     opts = options if options is not None else Options()
-    if opts.min_stages != opts.max_stages:
-        raise NotImplementedError(
-            "radau_adjoint over the variable-order ladder (min_stages != "
-            "max_stages) is not ported to janus_tpu_torch yet; it comes "
-            "with radaup (ROADMAP.md Queue 1, item 17)")
     specs = normalize_events(events)
     if any(not e.terminal for e in specs):
         raise ValueError("radau_adjoint(events=...) requires every event "
@@ -174,11 +181,20 @@ def radau_adjoint(f: Callable, tspan, y0, args=None,
         raise ValueError("stage_solver='gmres' is matrix-free; drop jac=")
     t0, tf = tspan
     y0 = cm.on_device(y0, device)
+    vo_orders = None
+    if opts.min_stages != opts.max_stages:
+        # the variable-order forward ladder (module docstring)
+        orders = ladder_orders(opts, y0.dtype)
+        if len(orders) < 2:
+            opts = opts.replace(min_stages=orders[0], max_stages=orders[0])
+        else:
+            vo_orders = orders
     if mass is not None:
         mass = cm.like(mass, y0)
     use_cost = cost is not None
     run = _build_adjoint(f, opts, jac_user=jac, mass=mass, n_alg=n_alg,
-                         cost=cost, remat=bool(checkpoints), events=specs)
+                         cost=cost, remat=bool(checkpoints), events=specs,
+                         vo_orders=vo_orders)
     if t_eval is None and not checkpoints:
         return adjoint_outputs(run(t0, tf, y0, args, None), bool(specs))
     if t_eval is None:
@@ -394,7 +410,7 @@ class _RadauAdjointFn(torch.autograd.Function):
             cfg["f"], cfg["opts"], cfg["jac"], cfg["mass"], mesh, nacc, t0b,
             tfb, t_term, y0b, cfg["rebuild"], dleaves, y_end, ybar, tbar,
             cfg["n_alg"], cost=cfg["cost"], qbar=qbar,
-            specs=cfg["events"], ev_idx=ev_idx)
+            specs=cfg["events"], ev_idx=ev_idx, vo_orders=cfg["vo_orders"])
         return (None, *boundary_cotangents(t0, tf, t0bar, tfbar),
                 lam0.reshape(ctx.y0_shape), None, *gleaves)
 
@@ -415,25 +431,27 @@ def boundary_cotangents(t0, tf, t0bar, tfbar):
 
 
 def _forward_solve(cfg, t0, tf, y0, h0, dleaves, mesh_size):
+    solve = solve_radau_vo if cfg["vo_orders"] else solve_radau
     with torch.no_grad():
-        return solve_radau(cfg["f"], t0, tf, y0, args=cfg["rebuild"](dleaves),
-                           options=cfg["opts"], jac=cfg["jac"],
-                           mass=cfg["mass"], quad=cfg["cost"],
-                           events=cfg["events"] or None,
-                           _mesh_size=mesh_size, _h0=h0)
+        return solve(cfg["f"], t0, tf, y0, args=cfg["rebuild"](dleaves),
+                     options=cfg["opts"], jac=cfg["jac"], mass=cfg["mass"],
+                     quad=cfg["cost"], events=cfg["events"] or None,
+                     _mesh_size=mesh_size, _h0=h0)
 
 
 def _build_adjoint(f, opts, jac_user, mass, n_alg=0, cost=None, remat=False,
-                   events=()):
+                   events=(), vo_orders=None):
     """run(t0, tf, y0, args, h0) -> (y, t, h_next, event_idx[, q]) through
     ``_RadauAdjointFn``. remat: keep only the inputs in the forward pass and
-    solve again, with the mesh, in the backward pass (``checkpoints=``)."""
+    solve again, with the mesh, in the backward pass (``checkpoints=``).
+    vo_orders: the stage counts of a variable-order forward ladder, or
+    None (fixed stage count)."""
 
     def run(t0, tf, y0, args, h0):
         dleaves, rebuild, _, _ = _split_diff(args)
         cfg = {"f": f, "opts": opts, "jac": jac_user, "mass": mass,
                "n_alg": n_alg, "cost": cost, "events": events,
-               "rebuild": rebuild, "remat": remat}
+               "rebuild": rebuild, "remat": remat, "vo_orders": vo_orders}
         return _RadauAdjointFn.apply(cfg, t0, tf, y0, h0, *dleaves)
 
     return run
@@ -475,17 +493,20 @@ def _transposed_bands(dl, d, du):
 
 def _adjoint_sweep(f, opts, jac_user, mass, mesh, nacc, t0b, tfb, t_term,
                    y0b, rebuild, dleaves, y_end, ybar, tbar, n_alg=0,
-                   cost=None, qbar=None, specs=(), ev_idx=None):
+                   cost=None, qbar=None, specs=(), ev_idx=None,
+                   vo_orders=None):
     """The backward loop over the stored accepted-step mesh. Returns
     (λ(t0) [M, D], the leaves' gradients, t̄0 [M], t̄f [M]). The mesh dict
     is emptied once it has been read, so that a caller that holds no other
     reference frees the rings before the gradients are assembled. specs /
     ev_idx: the terminal events and which one stopped each lane (−1:
-    none)."""
+    none). vo_orders: a variable-order forward's ladder; its mesh
+    polynomials are padded to the top stage count, at which the sweep
+    runs."""
     use_cost = cost is not None
     m, dim = y_end.shape
     dtype, dev = y_end.dtype, y_end.device
-    s = opts.min_stages
+    s = vo_orders[-1] if vo_orders else opts.min_stages
     tab = radau_tableau(s)
     cap = mesh["t"].shape[1]
     npair = (s - 1) // 2

@@ -232,30 +232,35 @@ def test_mode_restrictions_raise():
 @pytest.mark.parametrize("what", ["events", "variable-stages", "radaup",
                                   "rodas", "dopri5"])
 def test_unported_adjoints_raise(what):
-    """What is not ported raises NotImplementedError; of what is ported
-    (events, rodas, dopri5) the restrictions the reference keeps raise
-    ValueError."""
+    """Every adjoint is ported now. Of what is ported the restrictions the
+    reference keeps raise ValueError (non-terminal events on radau and
+    dopri5, the kernels K1/K2 on rodas); the variable-order ladder
+    (min_stages != max_stages, or method='radaup') gives a finite
+    gradient; a method with no reverse mode (grk4t) raises ValueError."""
     y0 = torch.tensor([[2.0, 0.0]], dtype=torch.float64)
-    if what == "events":       # ported: non-terminal events have no gradient
+    if what == "events":       # non-terminal events have no gradient
         with pytest.raises(ValueError, match="terminal"):
             radau_adjoint(vdp_rhs, (0.0, 1.0), y0, args=5.0,
                           events=Event(lambda t, y, a: y[:, 0],
                                        terminal=False))
-    elif what == "rodas":      # ported: the kernels K1/K2 have no backward
+    elif what == "rodas":      # the kernels K1/K2 have no backward
         with pytest.raises(ValueError, match="no backward"):
             solve_adjoint(vdp_rhs, (0.0, 1.0), y0, method=what, args=5.0,
                           options=Options(kernel_lu=True, pivoting=False))
-    elif what == "dopri5":     # ported: non-terminal events have no gradient
+    elif what == "dopri5":     # non-terminal events have no gradient
         with pytest.raises(ValueError, match="terminal"):
             solve_adjoint(vdp_rhs, (0.0, 1.0), y0, method=what, args=5.0,
                           events=Event(lambda t, y, a: y[:, 0],
                                        terminal=False))
-    else:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            if what == "variable-stages":
-                radau_adjoint(vdp_rhs, (0.0, 1.0), y0, args=5.0,
+    else:                      # the ladder: a finite gradient
+        mu = torch.tensor(5.0, dtype=torch.float64, requires_grad=True)
+        y0g = y0.clone().requires_grad_()
+        if what == "variable-stages":
+            y = radau_adjoint(vdp_rhs, (0.0, 1.0), y0g, args=mu,
                               options=Options(min_stages=3, max_stages=7))
-            else:
-                solve_adjoint(vdp_rhs, (0.0, 1.0), y0, method=what, args=5.0)
+        else:
+            y = solve_adjoint(vdp_rhs, (0.0, 1.0), y0g, method=what, args=mu)
+        grads = torch.autograd.grad(torch.sum(y ** 2), (y0g, mu))
+        assert all(bool(torch.isfinite(g).all()) for g in grads)
     with pytest.raises(ValueError, match="no reverse mode"):
         solve_adjoint(vdp_rhs, (0.0, 1.0), y0, method="grk4t", args=5.0)

@@ -140,7 +140,9 @@ def test_no_module_of_the_port_imports_jax():
                    "linalg/qr.py", "models/neural.py", "bench/dopri.py",
                    "solve/ndf.py", "solve/adjoint_ndf.py", "bench/ndf.py",
                    "solve/seulex.py", "solve/adjoint_seulex.py",
-                   "bench/seulex.py"):
+                   "bench/seulex.py", "solve/radaup.py", "solve/bdf.py",
+                   "solve/rosenbrock.py", "solve/fixed.py",
+                   "bench/radaup.py"):
         assert f"janus_tpu_torch/{module}" in names, module
     pattern = re.compile(r"^\s*(import|from)\s+(jax|janus_tpu)([.\s]|$)",
                          re.MULTILINE)
@@ -232,6 +234,27 @@ def test_seulex_family_obeys_the_device_rule(entry, no_card):
     else:
         def run(y, **kw):
             return seulex_adjoint(_decay, (0.0, 1.0), y, args=3.0, **kw)
+    _obeys_the_device_rule(run)
+
+
+@pytest.mark.parametrize("entry", ["radaup", "radaup_adjoint", "bdf2",
+                                   "grk4t", "odeint_fixed"])
+def test_ladder_and_legacy_obey_the_device_rule(entry, no_card):
+    """As the NDF family: the radaup ladder, its adjoint, the legacy
+    steppers and the fixed grid."""
+    from janus_tpu_torch.solve import solve_adjoint
+    from janus_tpu_torch.solve.fixed import odeint_fixed
+    if entry == "radaup_adjoint":
+        def run(y, **kw):
+            return solve_adjoint(_decay, (0.0, 1.0), y, method="radaup",
+                                 args=3.0, **kw)
+    elif entry == "odeint_fixed":
+        def run(y, **kw):
+            return odeint_fixed(_decay, 0.0, 1.0, y, 8, 3.0, **kw)
+    else:
+        def run(y, **kw):
+            return solve_ivp(_decay, (0.0, 1.0), y, method=entry, args=3.0,
+                             rtol=1e-6, atol=1e-9, **kw).y
     _obeys_the_device_rule(run)
 
 

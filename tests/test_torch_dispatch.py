@@ -2,9 +2,9 @@
 reference's method table, on the CPU (no JAX call: the tables are read from
 the JAX package's module).
 
-- every method name and alias the reference knows is either ported (it runs)
-  or raises NotImplementedError naming its ROADMAP.md item; a name the
-  reference does not know raises ValueError, as the reference does;
+- every method name and alias the reference knows runs (every one is
+  ported); a name the reference does not know raises ValueError, as the
+  reference does;
 - ``FEATURES`` says what runs: every feature a row marks True runs, every
   one it marks False raises ValueError;
 - the port's messages point to torch, not to JAX.
@@ -23,22 +23,13 @@ torch.set_num_threads(1)
 
 Y0 = torch.tensor([[2.0, 0.0]], dtype=torch.float64)
 KW = dict(args=5.0, rtol=1e-5, atol=1e-8)
-PORTED = {"dopri5", "dopri853", "radau", "radau_fused", "rodas", "bdf",
-          "seulex"}
-ITEMS = {"radaup": 17, "bdf2": 18, "grk4t": 18}
-
-
 @pytest.mark.parametrize("method", sorted(set(ref_solve.FEATURES)
                                           | set(ref_solve._ALIASES)))
 def test_every_reference_method_runs_or_names_its_item(method):
-    canonical = ref_solve._ALIASES.get(method, method)
-    if canonical in PORTED:
-        sol = solve_ivp(vdp_rhs, (0.0, 0.5), Y0, method=method, **KW)
-        assert int(sol.status[0]) == 1
-        return
-    with pytest.raises(NotImplementedError,
-                       match=f"not ported.*item {ITEMS[canonical]}"):
-        solve_ivp(vdp_rhs, (0.0, 0.5), Y0, method=method, **KW)
+    """Every method is ported now: each name and alias runs."""
+    assert ref_solve._ALIASES.get(method, method) in FEATURES
+    sol = solve_ivp(vdp_rhs, (0.0, 0.5), Y0, method=method, **KW)
+    assert int(sol.status[0]) == 1
 
 
 @pytest.mark.parametrize("method", ["foo", "radau7", "rk4"])
@@ -49,20 +40,18 @@ def test_unknown_method_raises_value_error(method):
 
 
 def test_solve_adjoint_methods():
-    """radau, rodas, bdf, seulex, dopri5 and dopri853 (and their aliases)
-    have reverse modes; radaup names its item; grk4t and unknown names have
+    """radau, radaup, rodas, bdf, seulex, dopri5 and dopri853 (and their
+    aliases) have reverse modes; bdf2, grk4t and unknown names have
     none."""
     y0 = Y0.clone().requires_grad_()
     opts = Options(rtol=1e-6, atol=1e-9)
-    for method in ("radau5", "rodas", "rk45", "dop853", "ndf",
+    for method in ("radau5", "radaup", "rodas", "rk45", "dop853", "ndf",
                    "bdf_classic", "seulex"):
         y = solve_adjoint(vdp_rhs, (0.0, 0.5), y0, method=method, args=5.0,
                           options=opts)
         (g,) = torch.autograd.grad(y.sum(), y0)
         assert bool(torch.isfinite(g).all()), method
-    with pytest.raises(NotImplementedError, match="item 17"):
-        solve_adjoint(vdp_rhs, (0.0, 0.5), Y0, method="radaup", args=5.0)
-    for method in ("grk4t", "rosenbrock", "foo"):
+    for method in ("bdf2", "grk4t", "rosenbrock", "foo"):
         with pytest.raises(ValueError, match="no reverse mode"):
             solve_adjoint(vdp_rhs, (0.0, 0.5), Y0, method=method, args=5.0)
 

@@ -77,6 +77,15 @@ the stiff adjoint configuration (the recording forward through K1/K2) on
 64 lanes: the replay reproduces the recorded mesh (1e-12), autograd of the
 frozen replay chain agrees to 1e-10, d/dμ of 3 lanes to central
 differences within 1e-4, and 4 lanes against the CPU to 1e-7.
+
+The variable-order Radau ladder and the legacy steppers
+(``janus_tpu_torch.bench.radaup``, chip_smoke's phase 19) on the card:
+solve_radau_vo on 4,096 headline lanes (K=2 IND), and bdf2 and grk4t on
+4,096 lanes of the chip-matrix batch, with kernel_lu=True launch K1 and K2
+and equal the plain pivot-free LU to the bit (counters, y, sens); the
+radaup gradient on 64 lanes: d/dμ of 3 lanes to central differences within
+1e-4 and 4 lanes against the CPU to 1e-7; odeint_fixed's gradient on 1,024
+harmonic lanes against the CPU to 1e-10.
 """
 
 import numpy as np
@@ -86,6 +95,7 @@ import torch
 from janus_tpu_torch.bench import dopri as dopri_probe
 from janus_tpu_torch.bench import mol
 from janus_tpu_torch.bench import ndf as ndf_probe
+from janus_tpu_torch.bench import radaup as radaup_probe
 from janus_tpu_torch.bench import rodas as rodas_probe
 from janus_tpu_torch.bench import seulex as seulex_probe
 from janus_tpu_torch.interop import tree_to_torch
@@ -481,3 +491,57 @@ def test_seulex_adjoint_on_card_checks():
     ref = seulex_probe.gradient(4, torch.float64, torch.device("cpu"))
     for a, b in zip(got[1:], ref[1:]):
         assert float((a.cpu() - b).abs().max() / b.abs().max()) <= 1e-7
+
+
+def _bitwise(got, ref, stats, what):
+    for k in stats:
+        assert torch.equal(got.stats[k], ref.stats[k]), k
+    for k in what:
+        assert torch.equal(getattr(got, k), getattr(ref, k)), k
+
+
+@pytest.mark.gpu
+def test_radaup_kernels_on_card_equal_plain_lu():
+    dev = _card()
+    smalllu.reset_launch_counts()
+    got = radaup_probe.forward_solve(dev, True, m=4096)
+    assert smalllu.lu_factor_t.launches > 0 and smalllu.lu_solve_t.launches > 0
+    ref = radaup_probe.forward_solve(dev, False, m=4096)
+    assert bool((got.status == 1).all())
+    _bitwise(got, ref, radaup_probe.STATS, ("t", "y", "sens"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["bdf2", "grk4t"])
+def test_legacy_kernels_on_card_equal_plain_lu(method):
+    dev = _card()
+    smalllu.reset_launch_counts()
+    got = radaup_probe.legacy_solve(method, dev, True, m=4096)
+    assert smalllu.lu_factor_t.launches > 0 and smalllu.lu_solve_t.launches > 0
+    ref = radaup_probe.legacy_solve(method, dev, False, m=4096)
+    assert bool((got.status == 1).all())
+    _bitwise(got, ref, got.stats, ("t", "y", "status"))
+
+
+@pytest.mark.gpu
+def test_radaup_adjoint_on_card_checks():
+    dev = _card()
+    g = radaup_probe.gradient(64, torch.float64, dev)
+    assert all(x.is_cuda and bool(torch.isfinite(x).all()) for x in g[1:])
+    y0, mus = radaup_probe.adj_inputs(64, torch.float64, dev)
+    assert radaup_probe.fd_check(g[2], mus, y0, [0, 32, 63]) <= 1e-4
+    got = radaup_probe.gradient(4, torch.float64, dev)
+    ref = radaup_probe.gradient(4, torch.float64, torch.device("cpu"))
+    for a, b in zip(got[1:], ref[1:]):
+        assert float((a.cpu() - b).abs().max() / b.abs().max()) <= 1e-7
+
+
+@pytest.mark.gpu
+def test_odeint_fixed_on_card_matches_cpu():
+    dev = _card()
+    y0, om = radaup_probe.fixed_inputs(1024)
+    got = radaup_probe.fixed_gradient(y0.to(dev), om.to(dev))
+    ref = radaup_probe.fixed_gradient(y0, om)
+    for a, b in zip(got, ref):
+        assert a.is_cuda
+        assert float((a.cpu() - b).abs().max() / b.abs().max()) <= 1e-10

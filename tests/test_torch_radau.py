@@ -197,10 +197,12 @@ def test_guards_and_methods_raise():
     with pytest.raises(ValueError, match="unknown stage_solver"):
         solve_radau(vdp_rhs, 0.0, 1.0, y0, args=10.0,
                     options=Options(stage_solver="cg"))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        solve_ivp(vdp_rhs, (0.0, 1.0), y0, method="radaup", args=10.0)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        solve_adjoint(vdp_rhs, (0.0, 1.0), y0, method="radaup", args=10.0)
-    with pytest.raises(NotImplementedError, match="variable-order"):
-        solve_ivp(vdp_rhs, (0.0, 1.0), y0, method="radau", args=10.0,
-                  min_stages=3, max_stages=7)
+    # the variable-order ladder is ported: 'radaup' runs stages 1..7, and
+    # 'radau' with min_stages != max_stages is the same ladder
+    ladder = solve_ivp(vdp_rhs, (0.0, 1.0), y0, method="radaup", args=10.0)
+    assert int(ladder.status[0]) == 1
+    assert torch.equal(ladder.y, solve_ivp(
+        vdp_rhs, (0.0, 1.0), y0, method="radau", args=10.0, min_stages=1,
+        max_stages=7).y)
+    y = solve_adjoint(vdp_rhs, (0.0, 1.0), y0, method="radaup", args=10.0)
+    assert torch.equal(y, ladder.y)

@@ -279,6 +279,13 @@ def test_methods_without_step_args():
     with pytest.raises(ValueError, match="step_args"):
         solve_ivp(lambda t, y, a: -y, (0.0, 1.0), y0, method="radau_fused",
                   step_args=torch.ones((4,), dtype=torch.float64))
-    with pytest.raises(NotImplementedError, match="item 17"):
+    # the variable-order ladder has no slab-row contract (the reference's
+    # ValueErrors: its methods' table for 'radaup', the fixed-stage one for
+    # a 'radau' ladder)
+    with pytest.raises(ValueError, match="step_args=.*fixed-stage 'radau'"):
         solve_ivp(lambda t, y, a: -y, (0.0, 1.0), y0, method="radaup",
+                  step_args=torch.ones((4,), dtype=torch.float64))
+    with pytest.raises(ValueError, match="step_args= needs a fixed-stage"):
+        solve_ivp(lambda t, y, a: -y, (0.0, 1.0), y0, method="radau",
+                  min_stages=1, max_stages=7,
                   step_args=torch.ones((4,), dtype=torch.float64))

@@ -159,7 +159,25 @@ Phases, one line each (everything is made from fixed seeds):
     the plain pivot-free LU: counters and y equal to the bit, success
     fraction 1, 8 lanes against scipy's Radau; odeint_fixed rk4 on 65,536
     harmonic lanes, its gradient through the checkpointed loop against the
-    CPU (1e-10).
+    CPU (1e-10);
+20. the Hamiltonian-first API and the dual numbers
+    (janus_tpu_torch.bench.ham, its shortest check): the Hamiltonian Van
+    der Pol sensitivities -- ham.hamiltonian_dynamics(vdp_hamiltonian) and
+    its ham.hamiltonian_jacobian on 65,536 lanes y = [p, x] (x0 = (2, 0),
+    p0 = (linspace(0.1, 1), 0), mu = 1e3, Radau9, rtol 1e-6, f64,
+    pivoting=False) through solve_with_sensitivities(wrt_tf=True), the IND
+    fast path with N = 5 directions -- through K1/K2 (K1 factors the real
+    4x4 and split-complex 8x8 stage blocks, K2 every Newton, error-estimate
+    and tangent solve; ``launches_ham`` in the kernels line) and through
+    the plain pivot-free LU, one turn each: status, counters, y and the
+    sensitivities equal to the bit, the tf column against f(T, y(T))
+    (1e-6), dy(T)/dy0 of three lanes against central differences (1e-5), 8
+    lanes against scipy's Radau on the explicit costate system and their
+    success against the CPU port's, K1/K2 alone at D=4 and 2D=8; the
+    transform path (dual_solve_ivp, dopri5, a Jet omega and a Jet y0 on
+    65,536 harmonic lanes) against the closed form (1e-8) and 4 lanes
+    against the CPU (1e-10); torch.func.jvp of y(T) for y' = (a, 2a)
+    through all nine methods on CUDA tensors: (2, 4).
 
 Then one JSON line with the kernels' records, nvidia-smi's line, and last
 {"ok": true, "device": {...}}. Any failed check raises; no phase's failure
@@ -205,6 +223,7 @@ def main():
 
     from janus_tpu_torch import ops as janus_ops
     from janus_tpu_torch.bench import dopri as dopri_probe
+    from janus_tpu_torch.bench import ham as ham_probe
     from janus_tpu_torch.bench import kernels as bench
     from janus_tpu_torch.bench import mol
     from janus_tpu_torch.bench import ndf as ndf_probe
@@ -700,6 +719,12 @@ def main():
         launches_bdf2=radaup_report["bdf2_f64"]["launches"],
         launches_grk4t=radaup_report["grk4t_f64"]["launches"])
     print(f"[phase 19] {time.perf_counter() - t19:.1f} s", flush=True)
+
+    # ---- 20. ham, jet: Hamiltonian VdP sensitivities, the transform, F1 ------
+    t20 = time.perf_counter()
+    ham_report = ham_probe.run(dev, smoke=True)   # raises HamCheckFailed
+    route.update(launches_ham=ham_report["ham"]["launches"])
+    print(f"[phase 20] {time.perf_counter() - t20:.1f} s", flush=True)
 
     k1, k1p, k2, k2p, extra = times[(torch.float64, 4)]
     (b1, by1, lib1), (b2, by2, lib2) = (extra["lu_factor_t"],

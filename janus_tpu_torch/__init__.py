@@ -31,7 +31,22 @@ neural-ODE training path, ``models/neural.py``), both discrete adjoints on
 and ``qr_fallback`` (``linalg/qr.py``) on the Radau solve, and its
 Hessian-vector products ``solve.radau_hvp``; the variable-order NDF/BDF
 (``solve/ndf.py``, its corrector through K1/K2 under ``kernel_lu``) with
-its discrete adjoint ``solve.ndf_adjoint`` (``solve/adjoint_ndf.py``).
+its discrete adjoint ``solve.ndf_adjoint`` (``solve/adjoint_ndf.py``);
+SEULEX (``solve/seulex.py``) with its discrete adjoint
+``solve.seulex_adjoint`` (``solve/adjoint_seulex.py``); the variable-order
+Radau ladder (``solve/radaup.py``, ``solve_ivp(method='radaup')``) with its
+continuous adjoint, and the legacy steppers BDF2 (``solve/bdf.py``), GRK4T
+(``solve/rosenbrock.py``) and the fixed-grid ``solve.fixed.odeint_fixed``,
+all of them through K1/K2 under ``kernel_lu`` where they factor; forward
+mode (``torch.func.jvp``) through every method, with the norms' square root
+``solve.common.safe_sqrt`` zero-differentiated at 0 as in the reference;
+the Hamiltonian-first API ``ham`` (dynamics, Jacobians and partials of a
+scalar H on ``torch.func``), the dual numbers ``jet`` (``Jet`` and its ops,
+``jet.solve.dual_solve_ivp`` and ``solve_with_sensitivities``: the IND
+sweep where the method has one, else ``torch.func.vmap`` over
+``torch.func.jvp`` of the solve) and the problem library
+(``models/problems.py``: Hamiltonians, Dubins, Brusselator, Pleiades,
+HIRES, OREGO, E5).
 
 Precision: f32 contractions must not be demoted to TF32 on the card (a
 demoted contraction stalls the f32 Newton) — the role of the reference's
@@ -45,6 +60,7 @@ torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
 
+from janus_tpu_torch.jet.core import Jet  # noqa: E402
 from janus_tpu_torch.solve import Solution, solve_ivp  # noqa: E402
 
-__all__ = ["solve_ivp", "Solution", "__version__"]
+__all__ = ["solve_ivp", "Solution", "Jet", "__version__"]

@@ -2,8 +2,9 @@
 
 The "weights" of this system are its ``Options``, ``args``, ``y0``, tangent
 seeds and mass matrix. ``options_from_jax`` reads a ``janus_tpu`` Options object by
-field name (duck-typed: no jax import here) and ``tree_to_torch`` converts
-arrays, so that both packages solve the same problem.
+field name (duck-typed: no jax import here), ``tree_to_torch`` converts
+arrays and ``jet_from_jax`` a reference Jet, so that both packages solve the
+same problem.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from janus_tpu_torch.jet.core import Jet
 from janus_tpu_torch.solve.common import default_device, tree_map
 from janus_tpu_torch.solve.options import Options
 
@@ -46,3 +48,10 @@ def tree_to_torch(tree, device=None, dtype=None):
             t = t.to(dtype)
         return t.to(default_device(device))
     return tree_map(conv, tree)
+
+
+def jet_from_jax(j, device=None, dtype=None):
+    """A reference Jet (anything with array-like ``r`` and ``d``) as the
+    port's Jet, both parts converted as ``tree_to_torch`` converts."""
+    return Jet(tree_to_torch(j.r, device, dtype),
+               tree_to_torch(j.d, device, dtype))

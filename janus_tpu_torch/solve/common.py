@@ -207,11 +207,51 @@ def ring_write(rings, slot, mask, values):
         ring.scatter_(1, index, torch.where(keep, val, ring.gather(1, index)))
 
 
+class _SafeSqrt(torch.autograd.Function):
+    """sqrt with a zero derivative at x == 0 (the reference's custom_jvp,
+    ``janus_tpu/solve/common.py:139-163``).
+
+    Solver error and correction norms are EXACTLY zero on locally
+    polynomial dynamics, and d(√u) = du/(2√u) is 0/0 there: one NaN
+    tangent poisons every sensitivity carried through the solve (forward
+    mode through any method on ẏ = const). The step controller is not
+    differentiable at a zero norm anyway, and the zero subgradient is the
+    reference's choice. The forward is ``torch.sqrt`` itself, so a NaN norm
+    stays NaN and fails its step. ``jvp`` serves ``torch.func.jvp`` and
+    forward AD; ``backward`` is the same rule transposed (reverse mode and
+    ``torch.func.vjp``); vmap's rule is generated."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x):
+        return torch.sqrt(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(output)
+        ctx.save_for_forward(output)
+
+    @staticmethod
+    def _slope(root, dx):
+        pos = root > 0
+        return torch.where(pos, dx / (2.0 * torch.where(pos, root, 1.0)),
+                           torch.zeros_like(dx))
+
+    @staticmethod
+    def jvp(ctx, dx):
+        (root,) = ctx.saved_tensors
+        return _SafeSqrt._slope(root, dx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (root,) = ctx.saved_tensors
+        return _SafeSqrt._slope(root, grad)
+
+
 def safe_sqrt(x):
-    """sqrt of a norm. The reference defines a zero tangent at 0 for AD
-    through the solve; nothing differentiates through the port's solve, so
-    the plain sqrt is the same function here."""
-    return torch.sqrt(x)
+    """sqrt of a norm, with a zero derivative at 0 (``_SafeSqrt``)."""
+    return _SafeSqrt.apply(x)
 
 
 def rms_norm(v, scale):
@@ -280,20 +320,28 @@ def zero_stats(m: int, names, device) -> Dict[str, torch.Tensor]:
             for k in names}
 
 
-def tree_map(fn, tree):
-    """fn over the leaves of a tree of dicts, lists and tuples (None stays)."""
+def tree_map(fn, tree, *rest, is_leaf=None):
+    """fn over the leaves of a tree of dicts, lists and tuples (None stays).
+    With more trees of tree's structure, fn(leaf, *their leaves there).
+    ``is_leaf(x)`` true makes x a leaf (a Jet, say) where it would be
+    looked into."""
     if tree is None:
         return None
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree, *rest)
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest), is_leaf=is_leaf)
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest),
+                                   is_leaf=is_leaf)
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
 
 
-def tree_leaves(tree):
+def tree_leaves(tree, is_leaf=None):
     out = []
-    tree_map(out.append, tree)
+    tree_map(out.append, tree, is_leaf=is_leaf)
     return out
 
 

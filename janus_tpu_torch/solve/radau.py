@@ -1090,7 +1090,11 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
         ze = mdot(torch.einsum("s,msd->md", e_vec, z) / h[:, None])
         # f0 was evaluated under the previous step's slab row: again under
         # this attempt's row
-        err1 = solve_real((f(t, y, fa) if use_slabs else f0) + ze)
+        # in the plain LU's [M, D] row-major layout (K2's comes back
+        # transposed): on the card a reduction's order follows the layout,
+        # and the norm below must add alike on either route
+        err1 = solve_real((f(t, y, fa) if use_slabs else f0) + ze
+                          ).contiguous()
         scale_e = opts.atol + opts.rtol * torch.maximum(torch.abs(y),
                                                         torch.abs(y_new))
         if use_index:
@@ -1102,7 +1106,7 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
         if use_gmres and not syncs.any(refine):
             enorm = enorm1
         else:
-            err2 = solve_real(f(t, y + err1, fa) + ze)
+            err2 = solve_real(f(t, y + err1, fa) + ze).contiguous()
             en2 = cm.rms_norm(err2, scale_e)
             enorm = torch.where(refine, torch.where(torch.isfinite(en2), en2,
                                                     1e10), enorm1)

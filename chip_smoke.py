@@ -177,7 +177,22 @@ Phases, one line each (everything is made from fixed seeds):
     transform path (dual_solve_ivp, dopri5, a Jet omega and a Jet y0 on
     65,536 harmonic lanes) against the closed form (1e-8) and 4 lanes
     against the CPU (1e-10); torch.func.jvp of y(T) for y' = (a, 2a)
-    through all nine methods on CUDA tensors: (2, 4).
+    through all nine methods on CUDA tensors: (2, 4);
+21. the outer control layer (janus_tpu_torch.bench.control, its shortest
+    check): batched multiple-shooting PMP Van der Pol -- 16,384 instances x
+    4 segments = 65,536 lanes (D=4, mu = linspace(0, 1), Radau5, rtol 1e-8,
+    atol 1e-11, pivoting=False) through control.newton_solve with the
+    Jacobian from one IND solve of the segment lanes, through K1/K2 (K1
+    factors the 4x4 and split-complex 8x8 stage blocks, K2 every Newton,
+    error-estimate and tangent solve; ``launches_control`` in the kernels
+    line) and through the plain pivot-free LU, one turn each: every
+    instance converged (fnorm < 1e-8), x, iters and fnorm equal to the bit,
+    8 instances against the CPU (1e-9), the solution integrated forward
+    reaches x(2) = 0 (1e-5), the busy share of one IND Jacobian solve; the
+    default AD Jacobian (torch.func.vmap over jvp of the residual) on the
+    plain route at 1,024 instances against the IND Newton (1e-7), and the
+    same through kernel_lu=True refused by the kernels' ValueError (they
+    have no derivative rule).
 
 Then one JSON line with the kernels' records, nvidia-smi's line, and last
 {"ok": true, "device": {...}}. Any failed check raises; no phase's failure
@@ -222,6 +237,7 @@ def main():
     sys.path.insert(0, here)
 
     from janus_tpu_torch import ops as janus_ops
+    from janus_tpu_torch.bench import control as control_probe
     from janus_tpu_torch.bench import dopri as dopri_probe
     from janus_tpu_torch.bench import ham as ham_probe
     from janus_tpu_torch.bench import kernels as bench
@@ -725,6 +741,12 @@ def main():
     ham_report = ham_probe.run(dev, smoke=True)   # raises HamCheckFailed
     route.update(launches_ham=ham_report["ham"]["launches"])
     print(f"[phase 20] {time.perf_counter() - t20:.1f} s", flush=True)
+
+    # ---- 21. control: multiple-shooting PMP VdP through K1/K2 -----------------
+    t21 = time.perf_counter()
+    control_report = control_probe.run(dev, smoke=True)  # ControlCheckFailed
+    route.update(launches_control=control_report["ind"]["launches"])
+    print(f"[phase 21] {time.perf_counter() - t21:.1f} s", flush=True)
 
     k1, k1p, k2, k2p, extra = times[(torch.float64, 4)]
     (b1, by1, lib1), (b2, by2, lib2) = (extra["lu_factor_t"],

@@ -46,7 +46,12 @@ scalar H on ``torch.func``), the dual numbers ``jet`` (``Jet`` and its ops,
 sweep where the method has one, else ``torch.func.vmap`` over
 ``torch.func.jvp`` of the solve) and the problem library
 (``models/problems.py``: Hamiltonians, Dubins, Brusselator, Pleiades,
-HIRES, OREGO, E5).
+HIRES, OREGO, E5); the outer control layer ``control`` (Newton, Ψtc,
+homotopy, augmented Lagrangian, Anderson, Newton–Krylov, shooting,
+``implicit_root``, Newton-CG) and the piecewise controls
+(``models/controls.py``). The CUDA kernels have no derivative rule: on a
+CUDA tensor a derivative through them is refused, never dropped
+(``ops.smalllu.refuse_derivatives``).
 
 Precision: f32 contractions must not be demoted to TF32 on the card (a
 demoted contraction stalls the f32 Newton) — the role of the reference's

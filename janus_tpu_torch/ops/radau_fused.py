@@ -25,7 +25,8 @@ import ctypes
 import torch
 
 from janus_tpu_torch.models.problems import DEVICE_PROBLEMS
-from janus_tpu_torch.ops.smalllu import _DTYPE_CODE, _check_cuda, _raise_on
+from janus_tpu_torch.ops.smalllu import (_DTYPE_CODE, _check_cuda, _raise_on,
+                                         refuse_derivatives)
 from janus_tpu_torch.solve import common as cm
 from janus_tpu_torch.solve import radau_fused as rf
 
@@ -109,6 +110,7 @@ def radau5_step(state, tf_row, f, args, consts: rf.StepConsts,
     if problem.dim != dim:
         raise ValueError(f"radau5_step: {problem.functor} has D="
                          f"{problem.dim}, the state D={dim}")
+    refuse_derivatives("radau5_step (K4)", state, tf_row, args)
     _check_cuda("radau5_step", 1, state, tf_row)
     params = param_rows(problem, args, state[0])
     if m == 0:

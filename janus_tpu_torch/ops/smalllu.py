@@ -11,6 +11,15 @@ reference's SoA layout with the trajectory on the last axis: a_t / lu_t
   ``linsolve_fused_ref``. Nothing else selects the twin: a kernel that fails
   to build or launch raises.
 - Each wrapper counts its kernel launches in ``.launches`` (a plain int).
+- The kernels have no derivative rule (the reference's ``pallas_call`` has
+  JVP and batching rules; these are raw launches). So a CUDA launch is
+  refused with a ValueError (``refuse_derivatives``) when an input carries
+  a derivative: it requires grad while grad mode is on, it is a forward-AD
+  dual, or a ``torch.func`` transform wraps it. The result would otherwise
+  carry no tangent and no grad_fn, and the derivative would be lost
+  silently. The ways out: the solvers' IND sweeps (``tangents=``,
+  ``args_tangents=``), which call the kernels on plain tensors, or the plain
+  route (``Options(kernel_lu=False)``).
 
 Arithmetic (kernels and twins): K1/K2 that of ``janus_tpu.linalg.smalllu``
 with pivot=False — divide by the pivot / diagonal, zero guarded to 1. K3 that
@@ -25,6 +34,9 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.autograd import forward_ad
+
+from janus_tpu_torch.solve.common import tree_leaves
 
 MAX_D = 16          # the kernels are instantiated for D = 1..16
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
@@ -88,6 +100,35 @@ def linsolve_fused_ref(a_t, b_t):
     return torch.stack(x)
 
 
+def derivative_carrier(t):
+    """Why the tensor t carries a derivative that a raw kernel launch would
+    drop ("wrapped by a torch.func transform", "requires grad", "is a
+    forward-AD dual"), or None."""
+    if not isinstance(t, torch.Tensor):
+        return None
+    if torch._C._functorch.is_functorch_wrapped_tensor(t):
+        return "is wrapped by a torch.func transform (jvp, vmap, grad)"
+    if t.requires_grad and torch.is_grad_enabled():
+        return "requires grad while grad mode is on"
+    if forward_ad.unpack_dual(t).tangent is not None:
+        return "is a forward-AD dual"
+    return None
+
+
+def refuse_derivatives(name, *trees):
+    """Raise ValueError when a tensor leaf of ``trees`` carries a derivative
+    (``derivative_carrier``): the kernels K1-K4 have no derivative rule."""
+    for leaf in tree_leaves(trees):
+        why = derivative_carrier(leaf)
+        if why is not None:
+            raise ValueError(
+                f"{name}: an input {why}, and the CUDA kernels K1-K4 have no "
+                "derivative rule (the result would carry no tangent and no "
+                "grad_fn). Take forward sensitivities with the solvers' IND "
+                "sweep (tangents=, args_tangents=), or differentiate on the "
+                "plain route (Options(kernel_lu=False))")
+
+
 def _check_cuda(name, d, *ts):
     for t in ts:
         if t.device.type != "cuda":
@@ -122,6 +163,7 @@ def lu_factor_t(a_t):
     d = _dim(a_t.shape[0], "lu_factor_t")
     if a_t.device.type == "cpu":
         return lu_factor_t_ref(a_t)
+    refuse_derivatives("lu_factor_t (K1)", a_t)
     _check_cuda("lu_factor_t", d, a_t)
     out = torch.empty_like(a_t)
     m = a_t.shape[1]
@@ -148,6 +190,7 @@ def lu_solve_t(lu_t, b_t):
                          f"lu_t {tuple(lu_t.shape)}")
     if lu_t.device.type == "cpu" and b_t.device.type == "cpu":
         return lu_solve_t_ref(lu_t, b_t)
+    refuse_derivatives("lu_solve_t (K2)", lu_t, b_t)
     _check_cuda("lu_solve_t", d, lu_t, b_t)
     out = torch.empty_like(b_t)
     m = b_t.shape[1]
@@ -176,6 +219,7 @@ def linsolve_fused(a_t, b_t):
                          f"match a_t {tuple(a_t.shape)}")
     if a_t.device.type == "cpu" and b_t.device.type == "cpu":
         return linsolve_fused_ref(a_t, b_t)
+    refuse_derivatives("linsolve_fused (K3)", a_t, b_t)
     _check_cuda("linsolve_fused", d, a_t, b_t)
     out = torch.empty_like(b_t)
     m = b_t.shape[1]

@@ -37,6 +37,15 @@ def _midpoint_step(f, t, y, h, args):
 _STEPPERS = {"rk4": _rk4_step, "midpoint": _midpoint_step}
 
 
+def _records(*trees) -> bool:
+    """Whether autograd records a step on these inputs. Only then is a step
+    checkpointed: the checkpoint's saved-tensor hooks refuse an f built on
+    ``torch.func`` (``ham``'s dynamics), which needs none of it otherwise."""
+    return torch.is_grad_enabled() and any(
+        isinstance(x, torch.Tensor) and x.requires_grad
+        for x in cm.tree_leaves(trees))
+
+
 def odeint_fixed(f: Callable, t0, tf, y0, n_steps: int, args: Any = None,
                  method: str = "rk4", step_args: Optional[Any] = None,
                  remat: bool = True, save_trajectory: bool = False,
@@ -50,7 +59,8 @@ def odeint_fixed(f: Callable, t0, tf, y0, n_steps: int, args: Any = None,
     ``device``, by default the CUDA card). step_args: optional tree of
     tensors with leading axis ``n_steps``, sliced per step and passed to f
     as ``(args, slab_k)``. remat: recompute each step in the backward pass
-    instead of keeping its stages. save_trajectory: also return ys
+    instead of keeping its stages (when autograd records the step: y, t0,
+    tf, args or step_args require grad). save_trajectory: also return ys
     [n_steps + 1, M, D].
 
     Returns y_final [M, D] (and the trajectory if asked for).
@@ -68,7 +78,7 @@ def odeint_fixed(f: Callable, t0, tf, y0, n_steps: int, args: Any = None,
         t = t0 + h * float(k)
         fa = args if step_args is None else \
             (args, cm.tree_map(lambda a, _k=k: a[_k], step_args))
-        if remat:
+        if remat and _records(y, t, h, fa):
             y = checkpoint(lambda yy, _t=t, _fa=fa: stepper(f, _t, yy, h,
                                                             _fa),
                            y, use_reentrant=False)

@@ -53,7 +53,8 @@ from janus_tpu_torch.solve.radau import (_HostSyncs, _gmres_mass_ops, _i32,
                                          _kernel_lu_factor, _kernel_lu_solve,
                                          default_jacobian,
                                          gmres_shifted_solver,
-                                         precond_probe_fn)
+                                         precond_probe_fn,
+                                         refuse_kernel_derivatives)
 from janus_tpu_torch.solve.radau_fused import _rdiv
 from janus_tpu_torch.solve.rodas import mass_dot
 
@@ -314,6 +315,8 @@ def solve_bdf(f: Callable, t0, tf, y0, args=None,
         raise ValueError("stage_solver='gmres' is matrix-free (J·v by jvp, "
                          "probed structure preconditioner); drop jac=")
     use_kernel = opts.kernel_lu and not use_gmres
+    refuse_kernel_derivatives(use_kernel, "solve_bdf", y0, t0, tf, args,
+                              tangents, args_tangents, mass)
     gmres_iters = 0 if opts.stage_solver == "tridiag" else opts.gmres_iters
 
     k_dirs = 0

@@ -58,7 +58,8 @@ from janus_tpu_torch.linalg.gmres import (gmres_batched, gmres_dense_solve,
                                           tridiag_solve_complex_auto)
 from janus_tpu_torch.linalg.qr import qr_factor, qr_solve
 from janus_tpu_torch.linalg.smalllu import lu_factor, lu_ok, lu_solve
-from janus_tpu_torch.ops.smalllu import lu_factor_t, lu_solve_t
+from janus_tpu_torch.ops.smalllu import (lu_factor_t, lu_solve_t,
+                                         refuse_derivatives)
 from janus_tpu_torch.solve import common as cm
 from janus_tpu_torch.solve.events import (handle_events, init_event_state,
                                           normalize_events)
@@ -135,6 +136,14 @@ def _build_iter_matrices(tab, h, jac, mass=None):
         bot = torch.cat([ai, ar], dim=-1)
         blocks.append(torch.cat([top, bot], dim=-2))
     return a_real, blocks
+
+
+def refuse_kernel_derivatives(use_kernel, name, y0, *trees):
+    """At a solve's entry: under ``kernel_lu`` on a CUDA tensor no input
+    may carry a derivative (``ops.smalllu.refuse_derivatives``: K1/K2 have
+    no derivative rule), so that the error comes before any work."""
+    if use_kernel and y0.device.type == "cuda":
+        refuse_derivatives(f"{name}(kernel_lu=True)", y0, *trees)
 
 
 def _kernel_lu_factor(a, pivot=False):
@@ -807,6 +816,8 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
     syncs = _HostSyncs()
 
     use_kernel = opts.kernel_lu and not use_gmres
+    refuse_kernel_derivatives(use_kernel, "solve_radau", y0, t0, tf, args,
+                              tangents, args_tangents, mass, step_args)
     factor = _kernel_lu_factor if use_kernel else None
     if use_gmres:
         jac_fn = precond_probe_fn(f, opts.precond, opts.precond_block, dim)
@@ -1121,10 +1132,14 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
         # error-estimator order is s+1 ⇒ controller exponent 1/(s+1)
         expo = 1.0 / (s + 1)
         have_old = (h_old > 0) & (err_old > 0) & (enorm > 0)
+        # the ratio is 1 where it is not used: 0 ** expo would send an
+        # infinite derivative into the unselected branch (NaN in reverse)
         mult = torch.where(
             have_old,
             h_abs / torch.where(h_old == 0, 1.0, h_old)
-            * (err_old / torch.where(enorm == 0, 1.0, enorm)) ** expo,
+            * torch.where(have_old,
+                          err_old / torch.where(enorm == 0, 1.0, enorm),
+                          1.0) ** expo,
             1.0)
         enorm_safe = torch.clamp(enorm, min=1e-16)
         gmult = torch.clamp(mult, max=1.0) if opts.gustafsson else 1.0

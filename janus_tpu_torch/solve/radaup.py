@@ -70,7 +70,9 @@ from janus_tpu_torch.solve.radau import (_event_tangent_jump, _factorize,
                                          _newton, _tangent_stages,
                                          default_jacobian,
                                          gmres_shifted_solver,
-                                         precond_probe_fn, solve_radau)
+                                         precond_probe_fn,
+                                         refuse_kernel_derivatives,
+                                         solve_radau)
 from janus_tpu_torch.solve.radau_fused import _rdiv
 from janus_tpu_torch.solve.radau_tables import radau_tableau
 
@@ -221,6 +223,8 @@ def solve_radau_vo(f: Callable, t0, tf, y0, args=None,
 
     use_gmres = opts.stage_solver != "lu"
     use_kernel = opts.kernel_lu and not use_gmres
+    refuse_kernel_derivatives(use_kernel, "solve_radau_vo", y0, t0, tf, args,
+                              tangents, args_tangents, mass)
     factor = _kernel_lu_factor if use_kernel else None
     if use_gmres:
         # the matrix-free ladder: J·v by jvp at the frozen linearization

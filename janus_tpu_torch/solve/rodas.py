@@ -49,7 +49,8 @@ from janus_tpu_torch.solve.events import (handle_events, init_event_state,
 from janus_tpu_torch.solve.options import Options
 from janus_tpu_torch.solve.radau import (STEP_ARGS_GUARD, _HostSyncs, _i32,
                                          _kernel_lu_factor, _kernel_lu_solve,
-                                         default_jacobian)
+                                         default_jacobian,
+                                         refuse_kernel_derivatives)
 
 # Published RODAS4 coefficients (Hairer & Wanner 1996; rodas.f ROCOE METH=1)
 GAMMA = 0.25
@@ -202,6 +203,8 @@ def solve_rodas(f: Callable, t0, tf, y0, args=None,
                          "torch.func.jvp through the solve for those")
     specs = normalize_events(events)
     t0, tf, y0 = cm.broadcast_batch(t0, tf, y0, device)
+    refuse_kernel_derivatives(opts.kernel_lu, "solve_rodas", y0, t0, tf,
+                              args, tangents, args_tangents, mass, step_args)
     m, dim = y0.shape
     dtype, dev = y0.dtype, y0.device
     syncs = _HostSyncs()

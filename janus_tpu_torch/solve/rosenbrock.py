@@ -23,7 +23,8 @@ from janus_tpu_torch.solve import common as cm
 from janus_tpu_torch.solve.bdf import check_kernel_lu, stage_lu
 from janus_tpu_torch.solve.ndf import _rms
 from janus_tpu_torch.solve.options import Options
-from janus_tpu_torch.solve.radau import _HostSyncs, _i32, default_jacobian
+from janus_tpu_torch.solve.radau import (_HostSyncs, _i32, default_jacobian,
+                                         refuse_kernel_derivatives)
 from janus_tpu_torch.solve.radau_fused import _rdiv
 from janus_tpu_torch.solve.radaup import _pow
 
@@ -52,6 +53,7 @@ def solve_ros4(f: Callable, t0, tf, y0, args=None,
     opts = options if options is not None else Options()
     check_kernel_lu(opts)
     t0, tf, y0 = cm.broadcast_batch(t0, tf, y0, device)
+    refuse_kernel_derivatives(opts.kernel_lu, "solve_ros4", y0, t0, tf, args)
     m, dim = y0.shape
     dtype, dev = y0.dtype, y0.device
     syncs = _HostSyncs()

@@ -56,7 +56,8 @@ from janus_tpu_torch.solve.events import (handle_events, init_event_state,
 from janus_tpu_torch.solve.ndf import _rms
 from janus_tpu_torch.solve.options import Options
 from janus_tpu_torch.solve.radau import (_HostSyncs, _i32, _kernel_lu_factor,
-                                         _kernel_lu_solve, default_jacobian)
+                                         _kernel_lu_solve, default_jacobian,
+                                         refuse_kernel_derivatives)
 from janus_tpu_torch.solve.radau_fused import _rdiv
 from janus_tpu_torch.solve.rodas import mass_dot
 
@@ -213,6 +214,8 @@ def solve_seulex(f: Callable, t0, tf, y0, args=None,
     store_q = bool(dense)
     mesh_size = max(int(_mesh_size), int(dense))
     t0, tf, y0 = cm.broadcast_batch(t0, tf, y0, device)
+    refuse_kernel_derivatives(opts.kernel_lu, "solve_seulex", y0, t0, tf,
+                              args, tangents, args_tangents, mass, step_args)
     m, dim = y0.shape
     dtype, dev = y0.dtype, y0.device
     syncs = _HostSyncs()

@@ -21,7 +21,7 @@ Phases, one line each (everything is made from fixed seeds):
    Van der Pol lanes (mu = 1e3, t in [0, 1]), Radau IIA s=5, rtol 1e-6,
    atol 1e-9, pivot-free stage LU through K1/K2, analytic Jacobian, K = 2
    IND sensitivities; the kernels' launch counts and host syncs of that run,
-   seconds per solve (median of 3 after a warm-up); the same with
+   seconds per solve (one timed run after a warm-up); the same with
    kernel_lu=False (plain torch LU), whose y and sens must agree within
    rtol 1e-5 (10x the solve's rtol: an ulp of difference may flip one step
    decision);
@@ -44,7 +44,7 @@ Phases, one line each (everything is made from fixed seeds):
 9. radau_fused headline f64: the same lanes as phase 4 through
    solve_ivp(..., method='radau_fused'), Radau5, rtol 1e-6, atol 1e-9:
    success 1.0, K4 launches and host syncs of that solve, seconds per solve
-   (median of 3 after a warm-up); K4's time per solve and per attempt
+   (one timed run after a warm-up); K4's time per solve and per attempt
    (CUDA events around each call of the K4 wrapper, median of 3) beside
    its bound (the operations of the attempts and Newton trips the run's
    counters record over the card's f64 rate); the warp efficiency of the
@@ -62,7 +62,10 @@ Phases, one line each (everything is made from fixed seeds):
 12. radau_fused f32 at rtol 1e-4, atol 1e-7: finite, success >= 0.99, K4's
     device time;
 13. the matrix-free Radau path (janus_tpu_torch.bench.mol, where each phase
-    is described): Thomas against PCR on the card (D=128, M = 1,024 and
+    is described; run with smoke=True: one timed run a cell, one profile
+    (the 65,536-lane MOL solve), GMRES(25) over an eighth of the span, the
+    block line over a quarter of its span, the IND solves over a sixteenth
+    of the line's): Thomas against PCR on the card (D=128, M = 1,024 and
     65,536, real and complex; agreement to 1e-10 relative, both times);
     bench.py's method-of-lines configuration at full width -- the D=128
     Fisher-KPP line, stage_solver='tridiag', rtol 1e-4 -- at M = 1,024 in
@@ -70,10 +73,10 @@ Phases, one line each (everything is made from fixed seeds):
     against scipy's Radau, ms per solve, steps, host syncs, launches and the
     device's busy share, and that no hand-written kernel was launched (this
     path runs none, as it runs no Pallas kernel in the reference); the same
-    lines through GMRES(8), and through GMRES(25) over a quarter of the
-    span; a 32x32 heat grid with precond='lines'; the interleaved 2-species
+    lines through GMRES(8), and through GMRES(25) over part of the span; a
+    32x32 heat grid with precond='lines'; the interleaved 2-species
     line with precond='block'; K=2 IND sensitivities through the GMRES stage
-    solvers (a quarter of the span) against a central difference;
+    solvers (part of the span) against a central difference;
 14. the continuous adjoint radau_adjoint (janus_tpu_torch.bench.mol, phases
     ``adjoint`` and ``vdp_adjoint``): bench.py's MOL-adjoint gradient -- the
     D=128 line, stage_solver='tridiag', adjoint_steps=48, loss sum(x y(T)^2),
@@ -190,9 +193,26 @@ Phases, one line each (everything is made from fixed seeds):
     8 instances against the CPU (1e-9), the solution integrated forward
     reaches x(2) = 0 (1e-5), the busy share of one IND Jacobian solve; the
     default AD Jacobian (torch.func.vmap over jvp of the residual) on the
-    plain route at 1,024 instances against the IND Newton (1e-7), and the
-    same through kernel_lu=True refused by the kernels' ValueError (they
-    have no derivative rule).
+    plain route at 1,024 instances, from the IND Newton's solution moved by
+    1e-3, against the IND Newton (1e-7), and the same through
+    kernel_lu=True refused by the kernels' ValueError (they have no
+    derivative rule); the forward check at rtol 1e-8;
+22. the infrastructure and the four examples that use it
+    (janus_tpu_torch.bench.infra, its shortest check): examples.
+    stiff_vdp_batch at 65,536 lanes (mu = logspace(1, 3), Radau5, rtol 1e-8)
+    through K1/K2 (``launches_examples`` in the kernels line) and the plain
+    LU: every lane SUCCESS, y, status, nsteps equal to the bit, traj/s;
+    bench.py's headline split over two processes on the one card (a gloo
+    group, parallel.lockstep, 32,768 lanes a rank through K1/K2, gathered
+    through the group): y, sens, status, naccept equal to the one-process
+    solve to the bit, each rank's K1/K2 launches (``launches_sharded``), the
+    wall times; examples.sharded_sweep on the same group; diag.trace around
+    a headline solve through K1/K2 and one on the plain LU with
+    qr_fallback: the four radau.* spans, device_memory_stats, the host cost
+    of record_function; examples.train_nn_hamiltonian (the native library,
+    Adam, the checkpoint restored to the bit, held-out error < 0.05) and
+    examples.learned_continuation (the learned policy converges in fewer
+    steps than the fixed schedule).
 
 Then one JSON line with the kernels' records, nvidia-smi's line, and last
 {"ok": true, "device": {...}}. Any failed check raises; no phase's failure
@@ -217,9 +237,10 @@ def _fail(msg):
 
 
 def _solve_seconds(fn):
-    """Median seconds of 3 calls of fn (CUDA events), after fn ran once."""
+    """Seconds of one call of fn (CUDA events), after fn ran once (the
+    probes keep their medians)."""
     from janus_tpu_torch.bench.kernels import events_ms
-    return statistics.median(events_ms(fn, 1) / 1e3 for _ in range(3))
+    return events_ms(fn, 1) / 1e3
 
 
 def main():
@@ -240,6 +261,7 @@ def main():
     from janus_tpu_torch.bench import control as control_probe
     from janus_tpu_torch.bench import dopri as dopri_probe
     from janus_tpu_torch.bench import ham as ham_probe
+    from janus_tpu_torch.bench import infra as infra_probe
     from janus_tpu_torch.bench import kernels as bench
     from janus_tpu_torch.bench import mol
     from janus_tpu_torch.bench import ndf as ndf_probe
@@ -256,6 +278,7 @@ def main():
     from janus_tpu_torch.solve.radau import solve_radau
 
     dev = torch.device("cuda:0")
+    t_start = time.perf_counter()
 
     # ---- 1. device ---------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -695,7 +718,9 @@ def main():
 
     # ---- 13. the matrix-free Radau path ---------------------------------------
     # ---- 14. the continuous adjoint (the last two phases of mol.PHASES) ------
-    report = mol.run(dev)   # a failed check raises mol.MolCheckFailed
+    t13 = time.perf_counter()
+    report = mol.run(dev, smoke=True)  # raises mol.MolCheckFailed
+    print(f"[phase 13-14] {time.perf_counter() - t13:.1f} s", flush=True)
     adj_launches = report["vdp_adjoint"]["launches"]
 
     # ---- 15. RODAS4, its discrete adjoint, events ------------------------------
@@ -748,6 +773,15 @@ def main():
     route.update(launches_control=control_report["ind"]["launches"])
     print(f"[phase 21] {time.perf_counter() - t21:.1f} s", flush=True)
 
+    # ---- 22. infrastructure and examples: the sharded headline, traces ---------
+    t22 = time.perf_counter()
+    infra_report = infra_probe.run(dev, smoke=True)  # InfraCheckFailed
+    route.update(launches_examples=infra_report["examples"]["launches"])
+    sharded = infra_report["sharded"]["launches"]
+    print(f"[phase 22] {time.perf_counter() - t22:.1f} s", flush=True)
+    print(f"[total] {time.perf_counter() - t_start:.1f} s, the build "
+          "included", flush=True)
+
     k1, k1p, k2, k2p, extra = times[(torch.float64, 4)]
     (b1, by1, lib1), (b2, by2, lib2) = (extra["lu_factor_t"],
                                         extra["lu_solve_t"])
@@ -760,7 +794,8 @@ def main():
          "library_ms": lib1, "shape": f"D=4 M={M} float64",
          "launches_vdp_adjoint": adj_launches["K1"],
          "launches_rodas": rodas_launches["K1"],
-         **{k: v["K1"] for k, v in route.items()}},
+         **{k: v["K1"] for k, v in route.items()},
+         "launches_sharded": [r["K1"] for r in sharded]},
         {"name": "lu_solve_t", "route": "cuda",
          "source": "janus_tpu_torch/csrc/smalllu.cu",
          "replaces": "janus_tpu/ops/smalllu_pallas.py:115",
@@ -769,7 +804,8 @@ def main():
          "library_ms": lib2, "shape": f"D=4 M={M} float64",
          "launches_vdp_adjoint": adj_launches["K2"],
          "launches_rodas": rodas_launches["K2"],
-         **{k: v["K2"] for k, v in route.items()}},
+         **{k: v["K2"] for k, v in route.items()},
+         "launches_sharded": [r["K2"] for r in sharded]},
         {"name": "linsolve_fused", "route": "cuda",
          "source": "janus_tpu_torch/csrc/smalllu.cu",
          "replaces": "janus_tpu/ops/smalllu_pallas.py:55",

@@ -51,7 +51,18 @@ homotopy, augmented Lagrangian, Anderson, Newton–Krylov, shooting,
 ``implicit_root``, Newton-CG) and the piecewise controls
 (``models/controls.py``). The CUDA kernels have no derivative rule: on a
 CUDA tensor a derivative through them is refused, never dropped
-(``ops.smalllu.refuse_derivatives``).
+(``ops.smalllu.refuse_derivatives``). The infrastructure: ``config``
+(float64 or float32 as torch's default dtype), ``utils`` (checkpoints on
+``torch.save``), ``native`` (the port's own ctypes binding of the C++
+oracle and dataset IO in ``native/``), ``diag``'s profiler hooks on
+``torch.profiler`` (``trace``, ``annotate``, ``scope``,
+``device_memory_stats``, ``marginal_seconds``), and ``parallel``: the batch
+sharded over the ranks of a ``torch.distributed`` process group as
+``DTensor`` s, each rank solving its own rows with the solver's gates read
+over every rank (``parallel.lockstep``); and the examples that need them
+(``examples/``: ``stiff_vdp_batch``, ``sharded_sweep``,
+``train_nn_hamiltonian``, ``learned_continuation``, each runnable as
+``python3 -m janus_tpu_torch.examples.<name>``).
 
 Precision: f32 contractions must not be demoted to TF32 on the card (a
 demoted contraction stalls the f32 Newton) — the role of the reference's
@@ -65,7 +76,8 @@ torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
 
+from janus_tpu_torch import config as config  # noqa: E402
 from janus_tpu_torch.jet.core import Jet  # noqa: E402
 from janus_tpu_torch.solve import Solution, solve_ivp  # noqa: E402
 
-__all__ = ["solve_ivp", "Solution", "Jet", "__version__"]
+__all__ = ["Jet", "solve_ivp", "Solution", "config", "__version__"]

@@ -212,6 +212,9 @@ def _labelled():
             setattr(mod, name, fn)
 
 
+RANGE_LABELS = ("mol.", "radau.")
+
+
 def profile_solve(solve):
     """One ``solve(wrap_rhs)`` under torch.profiler: launches (kernels,
     copies and sets on the card), the card's busy ms, and per label
@@ -230,10 +233,11 @@ def profile_solve(solve):
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.events()
-    # a labelled range also shows on the card's timeline, spanning what it
-    # launched: it is no launch and no busy time
+    # a labelled range (these, and the solver's own radau.* scopes) also
+    # shows on the card's timeline, spanning what it launched: it is no
+    # launch and no busy time
     on_card = [e for e in events if e.device_type == DeviceType.CUDA
-               and not e.name.startswith("mol.")]
+               and not e.name.startswith(RANGE_LABELS)]
     labels = {}
     for e in events:
         if e.device_type == DeviceType.CPU and e.name.startswith("mol."):
@@ -249,6 +253,20 @@ def profile_solve(solve):
 
 
 ADJ_STEPS = 48
+_NOT_PROFILED = {"launches": None, "busy_ms": float("nan"),
+                 "profiled_wall_ms": float("nan"), "labels": {}}
+
+
+def _profiled(prof, busy_share, what):
+    """The profile's part of a cell's line."""
+    if prof["launches"] is None:
+        return "not profiled"
+    return (f"launches {prof['launches']}, device busy {prof['busy_ms']:.2f} "
+            f"ms = {busy_share:.3f} of the {what} | "
+            + "; ".join(f"{k}: {v['calls']} calls, device "
+                        f"{v['device_ms']:.2f} ms, host {v['host_ms']:.1f} ms"
+                        for k, v in sorted(prof["labels"].items()))
+            + f" (of {prof['profiled_wall_ms']:.1f} ms under the profiler)")
 
 
 def _kernel_launches():
@@ -317,8 +335,9 @@ def _line_solve(m, dtype, dev, opts, wrap=None, tf=TF_LINE):
                        args=args, options=opts)
 
 
-def mol_phase(dev, m, dtype, reps=3):
-    """The MOL tridiag cell at M lanes: checks, times and one profile."""
+def mol_phase(dev, m, dtype, reps=3, profile=True):
+    """The MOL tridiag cell at M lanes: checks, times and, with
+    ``profile``, one solve under torch.profiler."""
     opts = Options(stage_solver="tridiag", **MOL_OPTS)
     name = f"MOL tridiag M={m} {str(dtype)[6:]}"
     _, y0, (_, rates) = mol_line(m, dtype, dev)
@@ -333,7 +352,8 @@ def mol_phase(dev, m, dtype, reps=3):
     ms = statistics.median(
         events_ms(lambda: _line_solve(m, dtype, dev, opts), 1)
         for _ in range(reps))
-    prof = profile_solve(lambda wrap: _line_solve(m, dtype, dev, opts, wrap))
+    prof = profile_solve(lambda wrap: _line_solve(m, dtype, dev, opts, wrap)
+                         ) if profile else _NOT_PROFILED
     st = sol.stats
     rec = {"ms_per_solve": ms, "host_syncs": syncs,
            "nsteps_max": int(st["nsteps"].max()),
@@ -341,27 +361,21 @@ def mol_phase(dev, m, dtype, reps=3):
            "nnewton_max": int(st["nnewton"].max()),
            "worst_vs_scipy": worst, "busy_share": prof["busy_ms"] / ms,
            **prof}
-    lab = prof["labels"]
     print(f"[{name}] all lanes SUCCESS; lanes 0, M/2, M-1 vs scipy Radau: "
           f"worst error / bound {worst:.3e} | {ms:.2f} ms per solve (median "
           f"of {reps}, CUDA events), steps max {rec['nsteps_max']}, Newton "
-          f"trips max {rec['nnewton_max']}, host syncs {syncs}, launches "
-          f"{prof['launches']}, device busy {prof['busy_ms']:.2f} ms = "
-          f"{rec['busy_share']:.3f} of the solve | "
-          + "; ".join(f"{k}: {v['calls']} calls, device {v['device_ms']:.2f} "
-                      f"ms, host {v['host_ms']:.1f} ms"
-                      for k, v in sorted(lab.items()))
-          + f" (of {prof['profiled_wall_ms']:.1f} ms under the profiler) | "
-          f"hand-written kernels launched: 0", flush=True)
+          f"trips max {rec['nnewton_max']}, host syncs {syncs} | "
+          f"{_profiled(prof, rec['busy_share'], 'solve')} | hand-written "
+          f"kernels launched: 0", flush=True)
     return rec, sol
 
 
-def gmres_phase(dev, y_tridiag, m=1024):
+def gmres_phase(dev, y_tridiag, m=1024, span25=TF_LINE / 4):
     """The MOL lines through GMRES(8), and through GMRES(25) over the first
-    quarter of the span (the path is host bound, so its time follows the
+    ``span25`` of the span (the path is host bound, so its time follows the
     steps, not the lanes)."""
     out = {}
-    for k, tf in ((8, TF_LINE), (25, TF_LINE / 4)):
+    for k, tf in ((8, TF_LINE), (25, span25)):
         opts = Options(stage_solver="gmres", gmres_iters=k, **MOL_OPTS)
         y_ref = y_tridiag if tf == TF_LINE else _line_solve(
             m, torch.float64, dev, opts.replace(stage_solver="tridiag"),
@@ -428,10 +442,11 @@ def heat_phase(dev, m=256, nx=32):
     return {"s_per_solve": sec, "worst_vs_scipy": worst}
 
 
-def block_phase(dev, m=1024, ncell=24):
-    """The interleaved stiff 2-species line, precond='block', GMRES(10)."""
+def block_phase(dev, m=1024, ncell=24, tf=0.5):
+    """The interleaved stiff 2-species line, precond='block', GMRES(10),
+    over t in [0, tf]."""
     dx = 1.0 / (ncell + 1)
-    k_stiff, tf = 200.0, 0.5
+    k_stiff = 200.0
     y0_np = 1.0 + 0.2 * np.random.default_rng(3).normal(size=(m, 2 * ncell))
     rhs = interleaved_rhs(dx)
     opts = Options(rtol=1e-7, atol=1e-10, stage_solver="gmres",
@@ -451,7 +466,7 @@ def block_phase(dev, m=1024, ncell=24):
     worst = worst_against(sol.y[0].cpu().numpy(), ref, 1e-5, 1e-8,
                           "block lane 0")
     print(f"[interleaved 2-species D={2 * ncell} M={m} f64, precond='block' "
-          f"(2x2), GMRES(10)] all lanes SUCCESS; lane 0 vs scipy Radau (rtol "
+          f"(2x2), GMRES(10), t in [0, {tf:g}]] all lanes SUCCESS; lane 0 vs scipy Radau (rtol "
           f"1e-5 / atol 1e-8): error / bound {worst:.3e} | {sec:.2f} s (one "
           f"solve, host clock), steps max {int(sol.stats['nsteps'].max())}",
           flush=True)
@@ -619,20 +634,13 @@ def adjoint_phase(dev, m, dtype, reps=3, checks=False, profile=True):
     ms_fwd = statistics.median(events_ms(forward, 1) for _ in range(reps))
     prof = profile_solve(
         lambda wrap: line_gradient(m, dtype, dev, opts, wrap)) if profile \
-        else {"launches": None, "busy_ms": float("nan"),
-              "profiled_wall_ms": float("nan"), "labels": {}}
+        else _NOT_PROFILED
     rec = {"ms_per_gradient": ms, "ms_forward": ms_fwd,
            "host_syncs_forward": syncs[0], "host_syncs_backward": syncs[1],
            "naccept_max": nacc, "adjoint_steps": ADJ_STEPS,
            "mesh_bytes": mesh_bytes, "peak_allocated_bytes": peak,
            "busy_share": prof["busy_ms"] / ms, "checks": errs, **prof}
-    profiled = "not profiled" if not profile else (
-        f"launches {prof['launches']}, device busy {prof['busy_ms']:.2f} ms "
-        f"= {rec['busy_share']:.3f} of the gradient | "
-        + "; ".join(f"{k}: {v['calls']} calls, device {v['device_ms']:.2f} "
-                    f"ms, host {v['host_ms']:.1f} ms"
-                    for k, v in sorted(prof["labels"].items()))
-        + f" (of {prof['profiled_wall_ms']:.1f} ms under the profiler)")
+    profiled = _profiled(prof, rec["busy_share"], "gradient")
     print(f"[{name}] gradients finite | {ms:.2f} ms per gradient, forward "
           f"alone (with the mesh) {ms_fwd:.2f} ms (medians of {reps}, CUDA "
           f"events) | host syncs {syncs[0]} forward + {syncs[1]} backward | "
@@ -704,10 +712,16 @@ PHASES = ("tridiag", "mol", "gmres", "heat", "block", "ind", "adjoint",
           "vdp_adjoint")
 
 
-def run(dev, only=PHASES):
+def run(dev, only=PHASES, smoke=False):
     """Run the named phases in order; returns their records, with the
-    seconds each phase took under ``"seconds"``."""
+    seconds each phase took under ``"seconds"``. ``smoke`` (chip_smoke's
+    phases 13-14) times each cell once, profiles only the 65,536-lane MOL
+    solve (reading a ~100k-launch gradient's profile takes about a
+    minute), and runs GMRES(25), the block and the IND solves over shorter
+    spans; every check stays."""
     report, seconds = {}, {}
+    reps = 1 if smoke else 3
+    small_profile = not smoke
 
     def timed(phase, fn, *a, **kw):
         t0 = time.perf_counter()
@@ -721,28 +735,37 @@ def run(dev, only=PHASES):
         report["tridiag"] = timed("tridiag", tridiag_phase)
     y_tridiag = None
     if "mol" in only or "gmres" in only:
-        report["mol_1024_f64"], sol = timed("mol", mol_phase, 1024, f64)
+        report["mol_1024_f64"], sol = timed("mol", mol_phase, 1024, f64,
+                                            reps, small_profile)
         y_tridiag = sol.y
     if "mol" in only:
-        report["mol_1024_f32"] = timed("mol", mol_phase, 1024, f32)[0]
-        report["mol_65536_f64"] = timed("mol", mol_phase, 65_536, f64)[0]
+        report["mol_1024_f32"] = timed("mol", mol_phase, 1024, f32, reps,
+                                       small_profile)[0]
+        report["mol_65536_f64"] = timed("mol", mol_phase, 65_536, f64,
+                                        reps)[0]
     if "gmres" in only:
-        report["gmres"] = timed("gmres", gmres_phase, y_tridiag)
+        report["gmres"] = timed("gmres", gmres_phase, y_tridiag,
+                                span25=TF_LINE / (8 if smoke else 4))
     if "heat" in only:
         report["heat"] = timed("heat", heat_phase)
     if "block" in only:
-        report["block"] = timed("block", block_phase)
+        report["block"] = timed("block", block_phase,
+                                tf=0.125 if smoke else 0.5)
     if "ind" in only:
-        report["ind"] = timed("ind", ind_phase)
+        report["ind"] = timed("ind", ind_phase,
+                              tf=TF_LINE / (16 if smoke else 4))
     if "adjoint" in only:
         report["adjoint_1024_f64"] = timed("adjoint", adjoint_phase, 1024,
-                                           f64, checks=True)
+                                           f64, reps=reps, checks=True,
+                                           profile=small_profile)
         report["adjoint_1024_f32"] = timed("adjoint", adjoint_phase, 1024,
                                            f32, reps=1, profile=False)
         report["adjoint_65536_f64"] = timed("adjoint", adjoint_phase, 65_536,
-                                            f64)
+                                            f64, reps=reps,
+                                            profile=small_profile)
     if "vdp_adjoint" in only:
-        report["vdp_adjoint"] = timed("vdp_adjoint", vdp_adjoint_phase)
+        report["vdp_adjoint"] = timed("vdp_adjoint", vdp_adjoint_phase,
+                                      reps=reps)
     report["seconds"] = seconds
     print("[phase seconds] " + ", ".join(f"{k} {v:.1f}"
                                          for k, v in seconds.items()),
@@ -755,6 +778,10 @@ def main(argv=None):
     ap.add_argument("--only", nargs="+", choices=PHASES, default=PHASES)
     ap.add_argument("--json", type=Path, default=None,
                     help="also write the JSON line to this file")
+    ap.add_argument("--smoke", action="store_true",
+                    help="chip_smoke's phases 13-14: one timed run a cell, "
+                         "one profile (the 65,536-lane MOL solve), shorter "
+                         "spans")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("mol: no CUDA device", file=sys.stderr)
@@ -765,7 +792,7 @@ def main(argv=None):
     print(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | "
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     report = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-              **run(torch.device("cuda:0"), a.only)}
+              **run(torch.device("cuda:0"), a.only, smoke=a.smoke)}
     line = json.dumps(report)
     if a.json is not None:
         a.json.parent.mkdir(parents=True, exist_ok=True)

@@ -517,7 +517,7 @@ def _adjoint_sweep(f, opts, jac_user, mass, mesh, nacc, t0b, tfb, t_term,
            else cm.derived_newton_tol(dtype, opts.rtol))
     use_gmres = opts.stage_solver != "lu"
     g_iters = 0 if opts.stage_solver == "tridiag" else opts.gmres_iters
-    syncs = _HostSyncs()
+    syncs = _HostSyncs(lockstep=True)
 
     def f2(t, y, dl):
         return f(t, y, rebuild(dl))
@@ -649,8 +649,7 @@ def _adjoint_sweep(f, opts, jac_user, mass, mesh, nacc, t0b, tfb, t_term,
 
     # lanes own nacc of the mesh's slots; the slots past every lane's mesh
     # are dead, so the loop starts at the longest mesh (one host read)
-    syncs.count += 1
-    for k in range(min(int(nacc.max()), cap) - 1, -1, -1):
+    for k in range(min(syncs.max_int(nacc), cap) - 1, -1, -1):
         live = k < nacc                               # [M]
         tn, hn = mesh["t"][:, k], mesh["h"][:, k]     # step start, signed h
         yn, qq = mesh["y"][:, k], mesh["q"][:, k]     # [M, D], [M, s, D]

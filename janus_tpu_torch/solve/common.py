@@ -10,6 +10,7 @@ another device.
 
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 from typing import Dict, Optional
 
@@ -447,3 +448,40 @@ def comp_add(hi, lo, x):
     hi2 = s + lo2
     lo3 = lo2 - (hi2 - s)
     return hi2, lo3
+
+
+# The process group whose ranks read every host gate of a solve together
+# (``parallel.lockstep``); None: a process reads its own lanes' gates.
+LOCKSTEP = contextvars.ContextVar("janus_tpu_torch_lockstep", default=None)
+
+
+def lane_einsum(eq: str, *ops):
+    """``torch.einsum`` (no ellipsis), but on CUDA tensors as one broadcast
+    product and one sum over the contracted indices, so that each lane's
+    result does not depend on how many lanes the batch holds: cuBLAS picks
+    its GEMM kernel, and with it the order of the adds, by the size of the
+    problem (on an H100 a 32,768-lane half of the headline parted from the
+    65,536-lane solve in the Newton's stage transform by 2.7e-20). The CPU
+    keeps ``torch.einsum``, whose rounding the parity tests hold."""
+    if not any(t.is_cuda for t in ops):
+        return torch.einsum(eq, *ops)
+    return broadcast_einsum(eq, *ops)
+
+
+def broadcast_einsum(eq: str, *ops):
+    """``torch.einsum(eq, *ops)`` (no ellipsis) as a broadcast product of
+    the operands, the output's indices first, summed over the rest."""
+    ins, out = eq.replace(" ", "").split("->")
+    ins = ins.split(",")
+    letters = list(out) + [c for c in dict.fromkeys("".join(ins))
+                           if c not in out]
+    prod = None
+    for spec, t in zip(ins, ops):
+        t = t.permute(sorted(range(len(spec)),
+                             key=lambda k: letters.index(spec[k])))
+        for pos, c in enumerate(letters):
+            if c not in spec:
+                t = t.unsqueeze(pos)
+        prod = t if prod is None else prod * t
+    contracted = tuple(range(len(out), len(letters)))
+    return prod.sum(dim=contracted) if contracted else prod

@@ -51,6 +51,7 @@ from janus_tpu_torch.control.precond import (blocks_of_jacobian,
                                              tridiag_bands)
 from janus_tpu_torch.control.precond import \
     guarded_block_lu as _guarded_block_lu
+from janus_tpu_torch.diag.profile import scope
 from janus_tpu_torch.diag.record import init_dyn, record_step
 from janus_tpu_torch.linalg.gmres import (gmres_batched, gmres_dense_solve,
                                           mass_matvec, tridiag_bands_of,
@@ -68,19 +69,51 @@ from janus_tpu_torch.solve.radau_tables import radau_tableau
 
 
 class _HostSyncs:
-    """Counts the host syncs of one solve (each ``bool(t.any())`` is one)."""
+    """Counts the host syncs of one solve (each ``bool(t.any())`` is one).
 
-    def __init__(self):
+    Inside ``parallel.lockstep`` each read is the maximum over the ranks of
+    the process group (one ``all_reduce``), as XLA's gates of a sharded
+    while_loop are global: every rank then runs the loop trips the
+    one-process solve runs, and a lane's result does not depend on how the
+    batch was split. A loop that updates every lane until the last lane
+    converges (the IND tangent sweep, the adjoint's stage iteration) needs
+    that. Only a solve whose every host read goes through this object may
+    run so (``lockstep=True``); any other raises there rather than letting
+    the ranks' loops part.
+    """
+
+    def __init__(self, lockstep: bool = False):
         self.count = 0
+        self.group = cm.LOCKSTEP.get()
+        if self.group is not None and not lockstep:
+            raise NotImplementedError(
+                "parallel.lockstep covers the fixed-stage Radau solve and "
+                "radau_adjoint only")
+
+    def _read(self, vals):
+        """vals (a 1-D integer tensor) on the host, reduced by max over the
+        lockstep group's ranks."""
+        self.count += 1
+        if self.group is not None:
+            import torch.distributed as dist
+            # NCCL reduces on the card; gloo on the host
+            on = vals.device if dist.get_backend(self.group) == "nccl" \
+                else "cpu"
+            vals = vals.to(on, torch.int64)
+            dist.all_reduce(vals, op=dist.ReduceOp.MAX, group=self.group)
+        return vals.tolist()
 
     def any(self, mask) -> bool:
-        self.count += 1
-        return bool(mask.any())
+        return bool(self._read(mask.any().reshape(1))[0])
 
     def any_each(self, *masks):
         """(any(m) for m in masks) read in ONE host sync."""
-        self.count += 1
-        return torch.stack([mask.any() for mask in masks]).tolist()
+        return [bool(v) for v in
+                self._read(torch.stack([mask.any() for mask in masks]))]
+
+    def max_int(self, x) -> int:
+        """max of an integer tensor, read in one host sync."""
+        return self._read(x.max().reshape(1))[0]
 
 
 def _ipow(x, n: int):
@@ -225,7 +258,7 @@ def _newton(tab, f, t, y, h, z0, scale, tol, solve_real, solve_cplx,
     floor_tol = 2.0 * eps_n * cm.safe_sqrt(torch.mean(
         torch.square(torch.abs(y) / scale), dim=-1))
 
-    w = torch.einsum("ij,mjd->mid", ti_mat, z0)
+    w = cm.lane_einsum("ij,mjd->mid", ti_mat, z0)
     z = z0
     dw_norm_old = y.new_zeros((m,))
     rate = y.new_zeros((m,))
@@ -243,7 +276,7 @@ def _newton(tab, f, t, y, h, z0, scale, tol, solve_real, solve_cplx,
         fail_nan = running & ~finite
 
         # transformed residuals and solves
-        tif = torch.einsum("ij,mjd->mid", ti_mat, fmat)         # [M, s, D]
+        tif = cm.lane_einsum("ij,mjd->mid", ti_mat, fmat)      # [M, s, D]
         rhs_r = tif[:, 0, :] - (float(tab.mu_real) / h)[:, None] \
             * mdot(w[:, 0, :])
         dws = [solve_real(rhs_r)]
@@ -287,7 +320,7 @@ def _newton(tab, f, t, y, h, z0, scale, tol, solve_real, solve_cplx,
 
         apply = running & ~fail_now
         w = torch.where(apply[:, None, None], w + dw, w)
-        z_new = torch.einsum("ij,mjd->mid", t_mat, w)
+        z_new = cm.lane_einsum("ij,mjd->mid", t_mat, w)
         z = torch.where(apply[:, None, None], z_new, z)
 
         conv_now = apply & ((dw_norm == 0.0) | at_floor | slow_ok)
@@ -346,7 +379,7 @@ def _tangent_stages(tab, f, t, y, h, z, yd, tol, solve_real, solve_cplx,
     while keep_going and it < max_iter:
         fd = torch.stack([apply_lin(i, yd + zd[:, :, i, :])
                           for i in range(s)], dim=2)           # [K, M, s, D]
-        tif = torch.einsum("ij,kmjd->kmid", ti_mat, fd)
+        tif = cm.lane_einsum("ij,kmjd->kmid", ti_mat, fd)
         mw = mdot(wd)
         rhs_r = tif[:, :, 0] - (float(tab.mu_real) / h)[None, :, None] \
             * mw[:, :, 0]
@@ -363,7 +396,7 @@ def _tangent_stages(tab, f, t, y, h, z, yd, tol, solve_real, solve_cplx,
             dws.append(sol[..., dim:])
         dw = torch.stack(dws, dim=2)                           # [K, M, s, D]
         wd = wd + dw
-        zd = torch.einsum("ij,kmjd->kmid", t_mat, wd)
+        zd = cm.lane_einsum("ij,kmjd->kmid", t_mat, wd)
         # converge RELATIVE to the tangent magnitude
         scale_d = 1.0 + torch.abs(yd)[:, :, None, :]           # [K, M, 1, D]
         dn = cm.safe_sqrt(torch.mean(torch.square(dw / scale_d),
@@ -652,7 +685,7 @@ def _event_tangent_jump(specs, f, t_ev, y_ev, args, args_rows, mass,
     k_dirs = yd.shape[0]
     tp_ev = torch.stack([th_e ** (q + 1) for q in range(qd.shape[2])],
                         dim=-1)                                  # [M, s]
-    yd_ev = yd_old + torch.einsum("kmqd,mq->kmd", qd, tp_ev)
+    yd_ev = yd_old + cm.lane_einsum("kmqd,mq->kmd", qd, tp_ev)
     f_ev = f(t_ev, y_ev, args)
     if mass is None:
         ydot = f_ev
@@ -813,7 +846,7 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
     m, dim = y0.shape
     dtype, dev = y0.dtype, y0.device
     npair = (s - 1) // 2
-    syncs = _HostSyncs()
+    syncs = _HostSyncs(lockstep=True)
 
     use_kernel = opts.kernel_lu and not use_gmres
     refuse_kernel_derivatives(use_kernel, "solve_radau", y0, t0, tf, args,
@@ -993,9 +1026,10 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
 
         # ---- Jacobian refresh (lanes that need it) -----------------------
         needj = need_jac & active
-        jnew = jac_fn(t, y, fa)
-        jmat = torch.where(needj.reshape((m,) + (1,) * (jnew.ndim - 1)),
-                           jnew, jac_m)
+        with scope("radau.jacobian"):
+            jnew = jac_fn(t, y, fa)
+            jmat = torch.where(needj.reshape((m,) + (1,) * (jnew.ndim - 1)),
+                               jnew, jac_m)
         current_jac = current_jac | needj
 
         # ---- factorization (lanes that need it) --------------------------
@@ -1010,12 +1044,13 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
                 tab, f, t_lin, y_lin, fa, jmat, h, mass, gmres_iters,
                 precond=opts.precond, block=opts.precond_block)
         else:
-            lr, pr, lc, pc, ok = _factorize(tab, h, jmat, mass, opts.pivoting,
-                                            factor=factor)
-            lu_r = torch.where(needf[:, None, None], lr, lu_real)
-            piv_r = torch.where(needf[:, None], pr, piv_real)
-            lu_c = torch.where(needf[:, None, None, None], lc, lu_cplx)
-            piv_c = torch.where(needf[:, None, None], pc, piv_cplx)
+            with scope("radau.factorize"):
+                lr, pr, lc, pc, ok = _factorize(tab, h, jmat, mass,
+                                                opts.pivoting, factor=factor)
+                lu_r = torch.where(needf[:, None, None], lr, lu_real)
+                piv_r = torch.where(needf[:, None], pr, piv_real)
+                lu_c = torch.where(needf[:, None, None, None], lc, lu_cplx)
+                piv_c = torch.where(needf[:, None, None], pc, piv_cplx)
             lu_real, piv_real, lu_cplx, piv_cplx = lu_r, piv_r, lu_c, piv_c
             fact_ok = torch.where(needf, ok, True)
             if use_kernel:
@@ -1036,21 +1071,22 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
             # per-lane QR rescue of a broken LU: one host read an attempt
             # (did a fresh factorization fail; does a lane still solve by
             # QR), where the reference gates with lax.cond
-            lu_fail = needf & ~fact_ok
-            any_fail, any_kept = torch.stack(
-                [lu_fail.any(), (use_qr & ~needf).any()]).tolist()
-            syncs.count += 1
-            if any_fail:
-                vs_r, r_r, vs_c, r_c, qok = _qr_factor_all(tab, h, jmat, mass)
-                qr_vs_r = torch.where(lu_fail[:, None, None], vs_r, qr_vs_r)
-                qr_r_r = torch.where(lu_fail[:, None, None], r_r, qr_r_r)
-                qr_vs_c = torch.where(lu_fail[:, None, None, None], vs_c,
-                                      qr_vs_c)
-                qr_r_c = torch.where(lu_fail[:, None, None, None], r_c,
-                                     qr_r_c)
-                qr_new = lu_fail & qok
-            else:
-                qr_new = torch.zeros_like(lu_fail)
+            with scope("radau.qr_fallback"):
+                lu_fail = needf & ~fact_ok
+                any_fail, any_kept = syncs.any_each(lu_fail, use_qr & ~needf)
+                if any_fail:
+                    vs_r, r_r, vs_c, r_c, qok = _qr_factor_all(tab, h, jmat,
+                                                               mass)
+                    qr_vs_r = torch.where(lu_fail[:, None, None], vs_r,
+                                          qr_vs_r)
+                    qr_r_r = torch.where(lu_fail[:, None, None], r_r, qr_r_r)
+                    qr_vs_c = torch.where(lu_fail[:, None, None, None], vs_c,
+                                          qr_vs_c)
+                    qr_r_c = torch.where(lu_fail[:, None, None, None], r_c,
+                                         qr_r_c)
+                    qr_new = lu_fail & qok
+                else:
+                    qr_new = torch.zeros_like(lu_fail)
             # freshly factored lanes take this factorization's mode; the
             # others keep the mode of their live factors
             use_qr = torch.where(needf, qr_new, use_qr)
@@ -1066,7 +1102,7 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
         theta_ws = 1.0 + c_nodes[None, :] * (h / h_prev)[:, None]   # [M,s]
         powers = torch.stack([_ipow(theta_ws, q + 1) for q in range(s)],
                              dim=-1)
-        poly_at = torch.einsum("msq,mqd->msd", powers, q_poly)
+        poly_at = cm.lane_einsum("msq,mqd->msd", powers, q_poly)
         poly_at_1 = torch.sum(q_poly, dim=1)         # poly(1) = Σ_q Q_q
         z0 = torch.where(have_sol[:, None, None],
                          poly_at - poly_at_1[:, None, :], 0.0)
@@ -1078,9 +1114,10 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
         run_newton = active & fact_ok
         if use_slabs:
             run_newton = run_newton & ~exhausted
-        z, nconv, niter, nfev, rate = _newton(
-            tab, f, t, y, h, z0, scale_n, newton_tol, solve_real, solve_cplx,
-            run_newton, max_iter, fa, syncs, mass=mass)
+        with scope("radau.newton"):
+            z, nconv, niter, nfev, rate = _newton(
+                tab, f, t, y, h, z0, scale_n, newton_tol, solve_real,
+                solve_cplx, run_newton, max_iter, fa, syncs, mass=mass)
         conv = run_newton & nconv
         newton_fail = run_newton & ~nconv
 
@@ -1098,7 +1135,7 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
         else:
             y_new, y_lo_new = y + z[:, -1, :], y_lo
             t_new, t_lo_new = t + h, t_lo
-        ze = mdot(torch.einsum("s,msd->md", e_vec, z) / h[:, None])
+        ze = mdot(cm.lane_einsum("s,msd->md", e_vec, z) / h[:, None])
         # f0 was evaluated under the previous step's slab row: again under
         # this attempt's row
         # in the plain LU's [M, D] row-major layout (K2's comes back
@@ -1165,27 +1202,28 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
             yd = torch.where(accept[None, :, None], yd + zd[:, :, -1, :], yd)
             # tangent of the collocation interpolant: the same θ-polynomial
             # in Zd
-            qd = torch.einsum("kmsd,sq->kmqd", zd, p_mat)
+            qd = cm.lane_einsum("kmsd,sq->kmqd", zd, p_mat)
 
         # ---- dense output & warm-start polynomial -------------------------
-        q_new = torch.einsum("msd,sq->mqd", z, p_mat)  # [M, θ-power q, D]
+        q_new = cm.lane_einsum("msd,sq->mqd", z, p_mat)  # [M, θ-power, D]
         q_poly = torch.where(accept[:, None, None], q_new, q_poly)
 
         def interp(theta):                   # [M, T] -> [M, T, D]
             tp = torch.stack([theta ** (q + 1) for q in range(s)], dim=-1)
-            return y[:, None, :] + torch.einsum("mtq,mqd->mtd", tp, q_new)
+            return y[:, None, :] + cm.lane_einsum("mtq,mqd->mtd", tp,
+                                                  q_new)
 
         if use_dense:
             inside, tpow = cm.dense_window(t_eval, t, h, accept, s)
             out_ys = torch.where(
                 inside[..., None],
-                y[:, None, :] + torch.einsum("mtq,mqd->mtd", tpow, q_new),
+                y[:, None, :] + cm.lane_einsum("mtq,mqd->mtd", tpow, q_new),
                 out_ys)
             if use_sens:
                 out_sd = torch.where(
                     inside[None, :, :, None],
                     yd_old[:, :, None, :]
-                    + torch.einsum("mtq,kmqd->kmtd", tpow, qd), out_sd)
+                    + cm.lane_einsum("mtq,kmqd->kmtd", tpow, qd), out_sd)
 
         # ---- events --------------------------------------------------------
         ev, terminate, t_ev, y_ev, ev_idx = handle_events(
@@ -1220,14 +1258,14 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
             vals = torch.stack([qla(t_st[i], y_st[i], args)
                                 for i in range(s)], dim=1)      # [M, s, Q]
             h_q = th_e * h
-            inc = h_q[:, None] * torch.einsum("s,msq->mq", b_vec, vals)
+            inc = h_q[:, None] * cm.lane_einsum("s,msq->mq", b_vec, vals)
             q_acc = q_acc + torch.where(accept[:, None], inc, 0.0)
             if use_quad_sens:
                 # stage tangents off the tangent polynomial at the nodes:
                 # yd(θ) = yd + Σ_q θ^{q+1}·Qd_q
                 tpow_s = torch.stack([th_i ** (q + 1) for q in range(s)],
                                      dim=1)                      # [M, q, s]
-                yd_st = yd_old[:, :, None, :] + torch.einsum(
+                yd_st = yd_old[:, :, None, :] + cm.lane_einsum(
                     "kmqd,mqs->kmsd", qd, tpow_s)
 
                 def ldot(i, k):
@@ -1242,7 +1280,7 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
                 ld = torch.stack([torch.stack([ldot(i, k) for i in range(s)],
                                               dim=1)
                                   for k in range(yd.shape[0])])  # [K,M,s,Q]
-                inc_d = h_q[None, :, None] * torch.einsum("s,kmsq->kmq",
+                inc_d = h_q[None, :, None] * cm.lane_einsum("s,kmsq->kmq",
                                                           b_vec, ld)
                 if specs:
                     # the moving endpoint: + l(t*, y*)·dt*_k

@@ -96,14 +96,30 @@ counters, y, Jet.d), K1 and K2 launched; forward mode through all nine
 methods on CUDA tensors gives (2, 4) for y' = (a, 2a) (rtol 1e-6, atol
 1e-8); the transform path (dopri5, a Jet omega and a Jet y0) on 256
 harmonic lanes within 1e-10 of the CPU.
+
+The infrastructure (``janus_tpu_torch.bench.infra``, chip_smoke's phase
+22) on the card: bench.py's headline configuration at 8,192 lanes of
+heterogeneous μ = logspace(1, 3) split over two processes on the one card
+(a gloo group with its mesh on the host, ``parallel.lockstep``, each rank's
+half through K1/K2, gathered through the group): y, sens, status and
+naccept equal to the one-process solve to the bit; ``diag.trace`` around a
+headline solve through K1/K2: the trace file, the radau.jacobian,
+radau.factorize and radau.newton spans once an attempt with device time
+under the last two (K1/K2 run there), no QR-fallback span (kernel_lu
+refuses it); ``diag.device_memory_stats``'s keys.
 """
+
+import os
+import sys
 
 import numpy as np
 import pytest
 import torch
 
+from janus_tpu_torch import diag
 from janus_tpu_torch.bench import dopri as dopri_probe
 from janus_tpu_torch.bench import ham as ham_probe
+from janus_tpu_torch.bench import infra
 from janus_tpu_torch.bench import mol
 from janus_tpu_torch.bench import ndf as ndf_probe
 from janus_tpu_torch.bench import radaup as radaup_probe
@@ -590,3 +606,78 @@ def test_transform_path_on_card_matches_cpu():
     assert got.d.is_cuda
     for a, b in ((got.r, ref.r), (got.d, ref.d)):
         assert float((a.cpu() - b).abs().max()) <= 1e-10
+
+
+SHARDED_WORKER = r"""
+import sys
+from pathlib import Path
+import numpy as np, torch
+rank, world, port, out = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                          Path(sys.argv[4]))
+from janus_tpu_torch.bench.infra import sharded_headline
+from janus_tpu_torch.parallel import initialize, make_mesh
+initialize(coordinator_address=f"localhost:{port}", num_processes=world,
+           process_id=rank, backend="gloo")
+mesh = make_mesh(device="cpu")
+mus = torch.logspace(1, 3, 8192, dtype=torch.float64)
+whole, _, launches = sharded_headline(mesh, 8192, "cuda", True, mus=mus)
+if not (launches["K1"] > 0 and launches["K2"] > 0):
+    raise SystemExit(f"rank {rank}: K1/K2 not launched: {launches}")
+if rank == 0:
+    np.savez(out / "gathered.npz", **{k: v.numpy() for k, v in whole.items()})
+"""
+
+
+@pytest.mark.gpu
+def test_sharded_headline_on_two_processes_equals_one_process(tmp_path):
+    dev = _card()
+    script = tmp_path / "worker.py"
+    script.write_text(SHARDED_WORKER)
+    procs = infra.start_workers(2, tmp_path, cmd=[sys.executable, str(script)])
+    # the workers' mu, made on the CPU (the card's logspace rounds otherwise)
+    mus = torch.logspace(1, 3, 8192, dtype=torch.float64).to(dev)
+    one = infra.headline_solve(*infra.headline_inputs(8192, dev, mus), True)
+    rcs, logs = infra.wait_workers(procs, tmp_path, timeout=600)
+    assert rcs == [0, 0], "\n---\n".join(o[-3000:] for o in logs)
+    got = np.load(tmp_path / "gathered.npz")
+    assert bool((one.status == 1).all())
+    for key, v in (("y", one.y), ("sens", one.sens), ("status", one.status),
+                   ("naccept", one.stats["naccept"])):
+        np.testing.assert_array_equal(got[key], v.cpu().numpy(), err_msg=key)
+
+
+@pytest.mark.gpu
+def test_trace_spans_and_memory_stats_on_card(tmp_path):
+    dev = _card()
+    y0, mus, seeds = infra.headline_inputs(1024, dev)
+    infra.headline_solve(y0, mus, seeds, True)          # K1/K2 built
+    with diag.trace(str(tmp_path)):
+        sol = infra.headline_solve(y0, mus, seeds, True)
+    (path,) = tmp_path.glob("*.pt.trace.json")
+    spans = infra.trace_spans(path)
+    attempts = int(sol.stats["nsteps"].max())
+    for name in ("radau.jacobian", "radau.factorize", "radau.newton"):
+        assert spans[name]["calls"] == attempts, (name, spans[name])
+    for name in ("radau.factorize", "radau.newton"):
+        assert spans[name]["device_ms"] > 0, (name, spans[name])
+    assert spans["radau.qr_fallback"]["calls"] == 0
+    mem = diag.device_memory_stats()
+    assert mem["peak_bytes_in_use"] > 0
+    assert mem["bytes_in_use"] == mem["allocated_bytes.all.current"]
+    assert mem["peak_bytes_in_use"] == mem["allocated_bytes.all.peak"]
+
+
+@pytest.mark.gpu
+def test_sharded_sweep_entry_point_on_one_card():
+    """``python3 -m janus_tpu_torch.examples.sharded_sweep`` as one process:
+    a one-rank NCCL group of its own, the sweep on the card."""
+    import subprocess
+    _card()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(infra._REPO) + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    res = subprocess.run([sys.executable, "-m",
+                          "janus_tpu_torch.examples.sharded_sweep"],
+                         env=env, capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-2000:]
+    assert "success fraction: 1.0000" in res.stdout

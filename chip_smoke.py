@@ -62,16 +62,16 @@ Phases, one line each (everything is made from fixed seeds):
 12. radau_fused f32 at rtol 1e-4, atol 1e-7: finite, success >= 0.99, K4's
     device time;
 13. the matrix-free Radau path (janus_tpu_torch.bench.mol, where each phase
-    is described; run with smoke=True: one timed run a cell, one profile
-    (the 65,536-lane MOL solve), GMRES(25) over an eighth of the span, the
-    block line over a quarter of its span, the IND solves over a sixteenth
-    of the line's): Thomas against PCR on the card (D=128, M = 1,024 and
+    is described; run with smoke=True: one timed run a cell (each adjoint
+    cell timed by its checked calls), no profile, GMRES(25) over a
+    thirty-second of the span, the block line over a sixteenth of its span,
+    the IND solves over a sixty-fourth of the line's): Thomas against PCR on the card (D=128, M = 1,024 and
     65,536, real and complex; agreement to 1e-10 relative, both times);
     bench.py's method-of-lines configuration at full width -- the D=128
     Fisher-KPP line, stage_solver='tridiag', rtol 1e-4 -- at M = 1,024 in
     f64 and f32 and at M = 65,536 in f64: every lane SUCCESS, three lanes
-    against scipy's Radau, ms per solve, steps, host syncs, launches and the
-    device's busy share, and that no hand-written kernel was launched (this
+    against scipy's Radau, ms per solve, steps, host syncs, and that no
+    hand-written kernel was launched (this
     path runs none, as it runs no Pallas kernel in the reference); the same
     lines through GMRES(8), and through GMRES(25) over part of the span; a
     32x32 heat grid with precond='lines'; the interleaved 2-species
@@ -83,7 +83,7 @@ Phases, one line each (everything is made from fixed seeds):
     gradient in y0 and the rates by loss.backward() -- at M = 1,024 in f64
     and f32 and at M = 65,536 in f64: gradients finite, ms per gradient and
     of the forward alone, host syncs, launches, busy share, max(naccept),
-    mesh bytes, peak memory; at 1,024 lanes the rate gradient of three lanes
+    mesh bytes, peak memory (the busy share only in the probe); at 1,024 lanes the rate gradient of three lanes
     against central differences, the y0 gradient against IND, and 4 lanes on
     the card against the CPU; K1-K4 launch 0 times there (the path runs no
     kernel, as it runs no Pallas kernel in the reference). Then the adjoint
@@ -190,11 +190,12 @@ Phases, one line each (everything is made from fixed seeds):
     error-estimate and tangent solve; ``launches_control`` in the kernels
     line) and through the plain pivot-free LU, one turn each: every
     instance converged (fnorm < 1e-8), x, iters and fnorm equal to the bit,
-    8 instances against the CPU (1e-9), the solution integrated forward
-    reaches x(2) = 0 (1e-5), the busy share of one IND Jacobian solve; the
+    8 instances against the CPU (1e-9; the CPU's Newton runs in a worker
+    process beside the card's turns), the solution integrated forward
+    reaches x(2) = 0 (1e-5); the
     default AD Jacobian (torch.func.vmap over jvp of the residual) on the
     plain route at 1,024 instances, from the IND Newton's solution moved by
-    1e-3, against the IND Newton (1e-7), and the same through
+    1e-5 (one iteration), against the IND Newton (1e-7), and the same through
     kernel_lu=True refused by the kernels' ValueError (they have no
     derivative rule); the forward check at rtol 1e-8;
 22. the infrastructure and the four examples that use it
@@ -210,9 +211,30 @@ Phases, one line each (everything is made from fixed seeds):
     a headline solve through K1/K2 and one on the plain LU with
     qr_fallback: the four radau.* spans, device_memory_stats, the host cost
     of record_function; examples.train_nn_hamiltonian (the native library,
-    Adam, the checkpoint restored to the bit, held-out error < 0.05) and
+    150 of its 400 Adam steps, the checkpoint restored to the bit, held-out
+    error < 0.05) and
     examples.learned_continuation (the learned policy converges in fewer
-    steps than the fixed schedule).
+    steps than the fixed schedule);
+23. the last eleven examples (janus_tpu_torch.bench.examples, its shortest
+    check; each cut is stated in that module's docstring):
+    examples.events_poincare at 65,536 lanes (mu = 10^linspace(0, 1.5), the
+    terminal falling x1 = 0 crossing, Radau5, rtol 1e-8) and
+    examples.fit_mu_gauss_newton at 65,536 lanes (one Gauss-Newton step,
+    three IND sweeps) through K1/K2 (``launches_poincare``,
+    ``launches_fit_mu`` in the kernels line) and the plain pivot-free LU,
+    one turn each: every lane crosses, y, t, status, event_t, event_y, mu_hat
+    and the residual equal to the bit between the routes, every IND sweep
+    finite; reverse_time over [0, 0.5]; hamiltonian_vdp at rtol 1e-5;
+    bratu_psitc whole; the dubins_pmp and vdp_pmp_energy shooting
+    residuals; event_time_training's first 3 steps; neural_ode_dopri's
+    first 5 Adam steps (the loss falls); newton_cg_hvp's value-and-gradient
+    and one H.v through K1/K2 (``launches_newton_cg``) and the plain LU,
+    equal to the bit; one Levenberg-Marquardt iteration of vdp_min_time on
+    four lanes. Each of these but reverse_time, bratu_psitc and
+    neural_ode_dopri is also held to the port's own CPU result on the same
+    inputs, at the CPU tests' tolerances (1e-9 absolute, 1e-8 relative for
+    event_time_training and newton_cg_hvp), computed in worker processes
+    beside the card's work.
 
 Then one JSON line with the kernels' records, nvidia-smi's line, and last
 {"ok": true, "device": {...}}. Any failed check raises; no phase's failure
@@ -260,6 +282,7 @@ def main():
     from janus_tpu_torch import ops as janus_ops
     from janus_tpu_torch.bench import control as control_probe
     from janus_tpu_torch.bench import dopri as dopri_probe
+    from janus_tpu_torch.bench import examples as examples_probe
     from janus_tpu_torch.bench import ham as ham_probe
     from janus_tpu_torch.bench import infra as infra_probe
     from janus_tpu_torch.bench import kernels as bench
@@ -779,6 +802,14 @@ def main():
     route.update(launches_examples=infra_report["examples"]["launches"])
     sharded = infra_report["sharded"]["launches"]
     print(f"[phase 22] {time.perf_counter() - t22:.1f} s", flush=True)
+
+    # ---- 23. the last eleven examples: the Poincare sweep, the fit ------------
+    t23 = time.perf_counter()
+    ex_report = examples_probe.run(dev, smoke=True)  # ExamplesCheckFailed
+    route.update(launches_poincare=ex_report["poincare"]["launches"],
+                 launches_fit_mu=ex_report["fit_mu"]["launches"],
+                 launches_newton_cg=ex_report["newton_cg"]["launches"])
+    print(f"[phase 23] {time.perf_counter() - t23:.1f} s", flush=True)
     print(f"[total] {time.perf_counter() - t_start:.1f} s, the build "
           "included", flush=True)
 

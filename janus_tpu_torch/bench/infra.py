@@ -39,7 +39,10 @@ Everything in float64 at full width. Phases (``PHASES``), each raising
   the spans a solve takes.
 - ``train``: ``examples.train_nn_hamiltonian.main`` on the card: the loss
   drop, the held-out error below 0.05, the restored parameters equal to the
-  saved ones to the bit (asserted in ``main``), the native library built.
+  saved ones to the bit (asserted in ``main``), the native library built;
+  the example's 400 Adam steps, or ``TRAIN_SMOKE_STEPS`` with ``smoke``
+  (held-out error 3.45e-2 on the CPU after 150 steps, 4.95e-2 after 200,
+  2.57e-2 after 400).
 - ``continuation``: ``examples.learned_continuation.main`` on the card:
   every held-out instance converges and the learned policy takes fewer
   mean steps than the fixed schedule (asserted in ``main``).
@@ -73,6 +76,7 @@ from janus_tpu_torch.solve.radau import solve_radau
 
 M = 65_536
 RANKS = 2
+TRAIN_SMOKE_STEPS = 150
 SPANS = ("radau.jacobian", "radau.factorize", "radau.qr_fallback",
          "radau.newton")
 PHASES = ("examples", "sharded", "trace", "train", "continuation")
@@ -431,7 +435,8 @@ def train_phase(dev, smoke=False):
     rep = {}
     with tempfile.TemporaryDirectory(prefix="janus_train_") as work:
         t0 = time.perf_counter()
-        train_nn_hamiltonian.main(workdir=work, device=dev, report=rep)
+        train_nn_hamiltonian.main(steps=TRAIN_SMOKE_STEPS if smoke else 400,
+                                  workdir=work, device=dev, report=rep)
         torch.cuda.synchronize()
         rep["seconds"] = time.perf_counter() - t0
     rep["native_library"] = native.library_path().name

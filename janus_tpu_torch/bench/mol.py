@@ -591,7 +591,9 @@ def _check_line_gradient(dev, opts, g_y0, g_rates):
 
 def adjoint_phase(dev, m, dtype, reps=3, checks=False, profile=True):
     """The MOL-adjoint cell at M lanes: checks, times and, with ``profile``,
-    one gradient under torch.profiler (launches, busy share, labels)."""
+    one gradient under torch.profiler (launches, busy share, labels).
+    ``reps=0`` times the checked calls themselves: the first gradient (its
+    warm-up included) and the check's forward."""
     opts = Options(stage_solver="tridiag", adjoint_steps=ADJ_STEPS,
                    **MOL_OPTS)
     name = f"MOL adjoint M={m} {str(dtype)[6:]}"
@@ -612,7 +614,10 @@ def adjoint_phase(dev, m, dtype, reps=3, checks=False, profile=True):
 
     _reset_kernel_launches()
     torch.cuda.reset_peak_memory_stats(dev)
-    _, g_y0, g_rates = line_gradient(m, dtype, dev, opts)  # also the warm-up
+    first = []
+    ms_first = events_ms(lambda: first.append(
+        line_gradient(m, dtype, dev, opts)), 1)       # also the warm-up
+    _, g_y0, g_rates = first[0]
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated(dev)
     syncs = (solve_radau.host_syncs, radau_adjoint.host_syncs)
@@ -621,17 +626,23 @@ def adjoint_phase(dev, m, dtype, reps=3, checks=False, profile=True):
                              f"kernel: {_kernel_launches()}")
     if not bool(torch.isfinite(g_y0).all() and torch.isfinite(g_rates).all()):
         raise MolCheckFailed(f"{name}: non-finite gradient")
-    sol = forward()
+    fwd = []
+    ms_fwd_first = events_ms(lambda: fwd.append(forward()), 1)
+    sol = fwd[0]
     nacc = int(sol.stats["naccept"].max())
     if not bool((sol.status == 1).all()) or nacc > ADJ_STEPS:
         raise MolCheckFailed(f"{name}: forward not SUCCESS on every lane, or "
                              f"max(naccept) {nacc} > {ADJ_STEPS}")
     del sol
     errs = _check_line_gradient(dev, opts, g_y0, g_rates) if checks else None
-    ms = statistics.median(
-        events_ms(lambda: line_gradient(m, dtype, dev, opts), 1)
-        for _ in range(reps))
-    ms_fwd = statistics.median(events_ms(forward, 1) for _ in range(reps))
+    if reps:
+        ms = statistics.median(
+            events_ms(lambda: line_gradient(m, dtype, dev, opts), 1)
+            for _ in range(reps))
+        ms_fwd = statistics.median(events_ms(forward, 1)
+                                   for _ in range(reps))
+    else:
+        ms, ms_fwd = ms_first, ms_fwd_first
     prof = profile_solve(
         lambda wrap: line_gradient(m, dtype, dev, opts, wrap)) if profile \
         else _NOT_PROFILED
@@ -642,8 +653,10 @@ def adjoint_phase(dev, m, dtype, reps=3, checks=False, profile=True):
            "busy_share": prof["busy_ms"] / ms, "checks": errs, **prof}
     profiled = _profiled(prof, rec["busy_share"], "gradient")
     print(f"[{name}] gradients finite | {ms:.2f} ms per gradient, forward "
-          f"alone (with the mesh) {ms_fwd:.2f} ms (medians of {reps}, CUDA "
-          f"events) | host syncs {syncs[0]} forward + {syncs[1]} backward | "
+          f"alone (with the mesh) {ms_fwd:.2f} ms ("
+          + (f"medians of {reps}" if reps else "the checked calls, the "
+             "gradient's warm-up included")
+          + f", CUDA events) | host syncs {syncs[0]} forward + {syncs[1]} backward | "
           f"max(naccept) {nacc} of {ADJ_STEPS}, mesh {mesh_bytes / 1e6:.1f} "
           f"MB, peak allocated {peak / 1e6:.1f} MB | {profiled} | "
           "hand-written kernels launched: 0"
@@ -715,10 +728,10 @@ PHASES = ("tridiag", "mol", "gmres", "heat", "block", "ind", "adjoint",
 def run(dev, only=PHASES, smoke=False):
     """Run the named phases in order; returns their records, with the
     seconds each phase took under ``"seconds"``. ``smoke`` (chip_smoke's
-    phases 13-14) times each cell once, profiles only the 65,536-lane MOL
-    solve (reading a ~100k-launch gradient's profile takes about a
-    minute), and runs GMRES(25), the block and the IND solves over shorter
-    spans; every check stays."""
+    phases 13-14) times each cell once (each adjoint cell by its checked
+    calls), profiles no cell (reading a
+    ~60k-launch solve's profile takes tens of seconds), and runs GMRES(25),
+    the block and the IND solves over shorter spans; every check stays."""
     report, seconds = {}, {}
     reps = 1 if smoke else 3
     small_profile = not smoke
@@ -742,26 +755,28 @@ def run(dev, only=PHASES, smoke=False):
         report["mol_1024_f32"] = timed("mol", mol_phase, 1024, f32, reps,
                                        small_profile)[0]
         report["mol_65536_f64"] = timed("mol", mol_phase, 65_536, f64,
-                                        reps)[0]
+                                        reps, not smoke)[0]
     if "gmres" in only:
         report["gmres"] = timed("gmres", gmres_phase, y_tridiag,
-                                span25=TF_LINE / (8 if smoke else 4))
+                                span25=TF_LINE / (32 if smoke else 4))
     if "heat" in only:
         report["heat"] = timed("heat", heat_phase)
     if "block" in only:
         report["block"] = timed("block", block_phase,
-                                tf=0.125 if smoke else 0.5)
+                                tf=0.03125 if smoke else 0.5)
     if "ind" in only:
         report["ind"] = timed("ind", ind_phase,
-                              tf=TF_LINE / (16 if smoke else 4))
+                              tf=TF_LINE / (64 if smoke else 4))
     if "adjoint" in only:
+        adj_reps = 0 if smoke else reps
         report["adjoint_1024_f64"] = timed("adjoint", adjoint_phase, 1024,
-                                           f64, reps=reps, checks=True,
+                                           f64, reps=adj_reps, checks=True,
                                            profile=small_profile)
         report["adjoint_1024_f32"] = timed("adjoint", adjoint_phase, 1024,
-                                           f32, reps=1, profile=False)
+                                           f32, reps=min(adj_reps, 1),
+                                           profile=False)
         report["adjoint_65536_f64"] = timed("adjoint", adjoint_phase, 65_536,
-                                            f64, reps=reps,
+                                            f64, reps=adj_reps,
                                             profile=small_profile)
     if "vdp_adjoint" in only:
         report["vdp_adjoint"] = timed("vdp_adjoint", vdp_adjoint_phase,

@@ -107,6 +107,13 @@ headline solve through K1/K2: the trace file, the radau.jacobian,
 radau.factorize and radau.newton spans once an attempt with device time
 under the last two (K1/K2 run there), no QR-fallback span (kernel_lu
 refuses it); ``diag.device_memory_stats``'s keys.
+
+The last eleven examples (``janus_tpu_torch.bench.examples``, chip_smoke's
+phase 23) on the card: ``events_poincare`` and ``fit_mu_gauss_newton`` (one
+Gauss–Newton step) at 8,192 lanes through K1/K2 equal to the plain
+pivot-free LU to the bit (events: y, status, event_t, event_y; the fit:
+μ̂, the residual and every IND sweep's y and sens), K1 and K2 launched;
+``reverse_time.main`` on the card (the round trip within 1e-7).
 """
 
 import os
@@ -681,3 +688,46 @@ def test_sharded_sweep_entry_point_on_one_card():
                          env=env, capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-2000:]
     assert "success fraction: 1.0000" in res.stdout
+
+
+@pytest.mark.gpu
+def test_events_poincare_through_kernels_equals_plain_lu():
+    from janus_tpu_torch.examples import events_poincare as ep
+    dev = _card()
+    mol._reset_kernel_launches()
+    _, sk = ep.solve(8192, dev, ep.options(kernel_lu=True))
+    launches = mol._kernel_launches()
+    assert launches["K1"] > 0 and launches["K2"] > 0, launches
+    _, sp = ep.solve(8192, dev, Options(rtol=ep.RTOL, atol=ep.ATOL,
+                                        pivoting=False))
+    assert bool((sk.status == ep.EVENT_TERMINATED).all())
+    for what in ("y", "t", "status", "event_t", "event_y"):
+        assert torch.equal(getattr(sk, what), getattr(sp, what)), what
+
+
+@pytest.mark.gpu
+def test_fit_mu_step_through_kernels_equals_plain_lu():
+    from janus_tpu_torch.examples import fit_mu_gauss_newton as fm
+    dev = _card()
+    m = 8192
+    out = {}
+    for k in (True, False):
+        mol._reset_kernel_launches()
+        _, data = fm.problem(m, dev, kernel_lu=k)
+        mu0 = torch.full((m,), 30.0, dtype=torch.float64, device=dev)
+        out[k] = fm.gn_step(mu0, data, fm.options(k))
+        launches = mol._kernel_launches()
+        assert (launches["K1"] > 0 and launches["K2"] > 0) == k, launches
+    (mk, rk, sk), (mp, rp, sp) = out[True], out[False]
+    assert torch.equal(mk, mp) and torch.equal(rk, rp)
+    for a, b in zip(sk, sp):
+        assert bool(torch.isfinite(a.sens).all())
+        assert torch.equal(a.y, b.y) and torch.equal(a.sens, b.sens)
+
+
+@pytest.mark.gpu
+def test_reverse_time_round_trip_on_card():
+    from janus_tpu_torch.examples import reverse_time
+    _card()
+    err, err8 = reverse_time.main()
+    assert err < 1e-7 and err8 < 1e-7

@@ -235,6 +235,22 @@ Phases, one line each (everything is made from fixed seeds):
     inputs, at the CPU tests' tolerances (1e-9 absolute, 1e-8 relative for
     event_time_training and newton_cg_hvp), computed in worker processes
     beside the card's work.
+24. parallel.lockstep for every family (janus_tpu_torch.bench.lockstep,
+    its shortest check): two gloo ranks on the one card, 32,768 lanes a
+    rank, each family's headline (rodas, grk4t, bdf2, dopri5, dopri853,
+    NDF, classic BDF, SEULEX, radaup through K1/K2 with K=2 IND where the
+    family takes tangents; radau_fused through K4; mu = logspace(1, 3)
+    where the headline has one mu, so that the lanes' step counts differ)
+    gathered through the group equal to the one-process 65,536-lane solve
+    to the bit, each
+    rank's K1/K2 and K4 launches equal to the one-process solve's
+    (``launches_lockstep`` on the K1/K2 rows, ``launches_sharded`` on K4's);
+    the four discrete adjoints' and the radaup gradient at 2 x 4,096 lanes
+    (lambda(t0) equal to the bit, the shared gradient all-reduced within
+    1e-12); one multiple-shooting PMP Newton iteration on 2 x 1,024
+    instances equal to the bit; and in this process each family's first
+    32,768 lanes solved alone equal to those lanes of the 65,536-lane
+    solve.
 
 Then one JSON line with the kernels' records, nvidia-smi's line, and last
 {"ok": true, "device": {...}}. Any failed check raises; no phase's failure
@@ -286,6 +302,7 @@ def main():
     from janus_tpu_torch.bench import ham as ham_probe
     from janus_tpu_torch.bench import infra as infra_probe
     from janus_tpu_torch.bench import kernels as bench
+    from janus_tpu_torch.bench import lockstep as lockstep_probe
     from janus_tpu_torch.bench import mol
     from janus_tpu_torch.bench import ndf as ndf_probe
     from janus_tpu_torch.bench import rodas as rodas_probe
@@ -810,6 +827,13 @@ def main():
                  launches_fit_mu=ex_report["fit_mu"]["launches"],
                  launches_newton_cg=ex_report["newton_cg"]["launches"])
     print(f"[phase 23] {time.perf_counter() - t23:.1f} s", flush=True)
+
+    # ---- 24. lockstep: every family split over two ranks -----------------------
+    t24 = time.perf_counter()
+    lock_report = lockstep_probe.run(dev, smoke=True)  # LockstepCheckFailed
+    lockstep = {k: lockstep_probe.launches_by_family(lock_report, k)
+                for k in ("K1", "K2", "K4")}
+    print(f"[phase 24] {time.perf_counter() - t24:.1f} s", flush=True)
     print(f"[total] {time.perf_counter() - t_start:.1f} s, the build "
           "included", flush=True)
 
@@ -826,7 +850,8 @@ def main():
          "launches_vdp_adjoint": adj_launches["K1"],
          "launches_rodas": rodas_launches["K1"],
          **{k: v["K1"] for k, v in route.items()},
-         "launches_sharded": [r["K1"] for r in sharded]},
+         "launches_sharded": [r["K1"] for r in sharded],
+         "launches_lockstep": lockstep["K1"]},
         {"name": "lu_solve_t", "route": "cuda",
          "source": "janus_tpu_torch/csrc/smalllu.cu",
          "replaces": "janus_tpu/ops/smalllu_pallas.py:115",
@@ -836,7 +861,8 @@ def main():
          "launches_vdp_adjoint": adj_launches["K2"],
          "launches_rodas": rodas_launches["K2"],
          **{k: v["K2"] for k, v in route.items()},
-         "launches_sharded": [r["K2"] for r in sharded]},
+         "launches_sharded": [r["K2"] for r in sharded],
+         "launches_lockstep": lockstep["K2"]},
         {"name": "linsolve_fused", "route": "cuda",
          "source": "janus_tpu_torch/csrc/smalllu.cu",
          "replaces": "janus_tpu/ops/smalllu_pallas.py:55",
@@ -851,6 +877,7 @@ def main():
          "ms": k4_rec["ms"], "plain_ms": sec_p * 1e3,
          "bound_ms": k4_rec["bound_ms"], "bound_by": k4_rec["bound_by"],
          "library_ms": None,
+         "launches_sharded": lockstep["K4"]["radau_fused"],
          "shape": f"every K4 launch of one radau_fused solve, VdP D=2 "
                   f"M={M} float64 (plain: the twin loop's solve)"},
     ]}))

@@ -13,8 +13,9 @@ machine with a CUDA card and nvcc:
 It prints, one line each:
 - K1-K3 against the PyTorch call that computes the same function
   (``torch.linalg.lu_factor(pivot=False)``, ``lu_solve``, and the pivoted
-  ``torch.linalg.solve``), D in {2, 4}, M = 65,536, f64 and f32: wall time
-  by CUDA events and device time by torch.profiler of each, and the bound;
+  ``torch.linalg.solve``), D in {2, 4, 8} (8: the split-complex blocks of
+  a D = 4 system), M = 65,536, f64 and f32: wall time by CUDA events and
+  device time by torch.profiler of each, and the bound;
 - pow(x, e) built with and without FMA contraction against PyTorch's, on
   2^25 inputs at K4's exponents (csrc/pow_fmad.cu);
 - K4 in whole fused solves (VdP mu = 1e3 headline, 65,536 and 4 x 65,536
@@ -136,13 +137,15 @@ def lu_inputs(rng, d, m, dtype, dev):
 
 
 def lu_table(dev, reps=50):
-    """K1-K3 and their library calls at D in {2, 4}, M = 65,536, f64/f32."""
+    """K1-K3 and their library calls at D in {2, 4, 8}, M = 65,536,
+    f64/f32 (D = 8: the size of the split-complex blocks of a D = 4
+    system)."""
     import numpy as np
     from janus_tpu_torch.ops import smalllu
     rng = np.random.default_rng(0)
     rows = []
     for dtype in (torch.float64, torch.float32):
-        for d in (2, 4):
+        for d in (2, 4, 8):
             a_t, b_t = lu_inputs(rng, d, M, dtype, dev)
             lu_t = smalllu.lu_factor_t(a_t)
             kern = {"lu_factor_t": lambda: smalllu.lu_factor_t(a_t),

@@ -15,6 +15,7 @@ import torch
 
 from janus_tpu_torch.control.newton import atleast_2d, fnorm_of
 from janus_tpu_torch.linalg.smalllu import linsolve
+from janus_tpu_torch.solve.common import host_any
 
 
 @dataclasses.dataclass
@@ -48,7 +49,7 @@ def anderson_solve(f: Callable, x0, window: int = 5, beta: float = 1.0,
     convd = torch.zeros(m, dtype=torch.bool, device=dev)
     it = torch.zeros(m, dtype=torch.int32, device=dev)
     running = torch.ones(m, dtype=torch.bool, device=dev)
-    while bool(running.any()):
+    while host_any(running):
         kcur = torch.clamp(nh, max=k_win)
         # least squares: minimize ‖Σ α_i f_i‖ s.t. Σ α = 1 via the normal
         # equations on the Gram matrix (small K×K per lane)

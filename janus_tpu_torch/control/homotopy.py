@@ -17,6 +17,7 @@ import torch
 from janus_tpu_torch.control.newton import (atleast_2d, fd_or_ad_jacobian,
                                             fnorm_of)
 from janus_tpu_torch.linalg.smalllu import lu_factor, lu_ok, lu_solve
+from janus_tpu_torch.solve.common import host_any
 
 
 @dataclasses.dataclass
@@ -61,7 +62,7 @@ def homotopy(g: Callable, x0, dlam0: float = 0.1, tol: float = 1e-8,
     dlam = torch.full((m,), dlam0, dtype=x.dtype, device=dev)
     it = torch.zeros(m, dtype=torch.int32, device=dev)
     running = torch.ones(m, dtype=torch.bool, device=dev)
-    while bool(running.any()):
+    while host_any(running):
         lam_try = torch.clamp(lam + dlam, max=1.0)
         x_cand, ok = correct(x, lam_try)
         adv = running & ok

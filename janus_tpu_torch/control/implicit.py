@@ -36,7 +36,8 @@ from janus_tpu_torch.control.newton import (atleast_2d, fd_or_ad_jacobian,
                                             newton_solve)
 from janus_tpu_torch.linalg.gmres import gmres_batched
 from janus_tpu_torch.linalg.smalllu import lu_factor, lu_solve
-from janus_tpu_torch.solve.common import on_device, tree_leaves, tree_map
+from janus_tpu_torch.solve.common import (LOCKSTEP, keeps_lockstep, on_device,
+                                          tree_leaves, tree_map)
 
 
 def _split_diff(args):
@@ -63,10 +64,12 @@ class _ImplicitRootFn(torch.autograd.Function):
     def forward(ctx, cfg, x0, *dleaves):
         x, conv = cfg.solve(x0, cfg.rebuild(list(dleaves)))
         ctx.cfg = cfg
+        ctx.lockstep = LOCKSTEP.get()
         ctx.save_for_backward(x, conv, *dleaves)
         return x
 
     @staticmethod
+    @keeps_lockstep
     def backward(ctx, xbar):
         cfg = ctx.cfg
         x, conv, *dleaves = ctx.saved_tensors

@@ -27,6 +27,7 @@ import torch
 
 from janus_tpu_torch.control.newton import (NewtonResult, atleast_2d,
                                             fnorm_of)
+from janus_tpu_torch.solve.common import LOCKSTEP, _HostSyncs, host_any
 
 
 def _norm(x):
@@ -42,7 +43,8 @@ def _safe_normalize(x, thresh=None):
     return (torch.where(use, x / norm, 0.0), torch.where(use, norm, 0.0))
 
 
-def _restart(matvec, precond, b, x0, unit_residual, residual_norm, restart):
+def _restart(matvec, precond, b, x0, unit_residual, residual_norm, restart,
+             syncs):
     """One restart: the Arnoldi basis of K(M·A, r0), the projected least
     squares, x0 + V·y, and the new preconditioned residual."""
     dtype = b.dtype
@@ -61,7 +63,7 @@ def _restart(matvec, precond, b, x0, unit_residual, residual_norm, restart):
         row[:k + 1] = h
         row[k + 1] = v_norm_1
         h_rows[k] = row
-        if bool(v_norm_1 == 0.0):                  # breakdown
+        if syncs.any(v_norm_1 == 0.0):              # breakdown
             break
     while len(basis) < restart + 1:
         basis.append(torch.zeros_like(b))
@@ -83,7 +85,15 @@ def gmres(matvec: Callable, b, tol: float = 1e-5, atol: float = 0.0,
           precond: Optional[Callable] = None):
     """x with ‖M(b − A·x)‖ ≤ max(tol·‖b‖, atol) by restarted GMRES over
     the whole array b (one Krylov space for all of it), from x0 = 0.
-    matvec: v -> A·v, precond: v -> M·v (left), each on b's shape."""
+    matvec: v -> A·v, precond: v -> M·v (left), each on b's shape. Raises
+    ``NotImplementedError`` inside ``parallel.lockstep``, and so does
+    ``newton_krylov``, which calls it."""
+    if LOCKSTEP.get() is not None:
+        raise NotImplementedError(
+            "krylov.gmres cannot run in parallel.lockstep: one Krylov space "
+            "over the whole array, whose gates are scalars of that one "
+            "system (sharded, they would be norms over every rank's rows)")
+    syncs = _HostSyncs()
     pc = precond if precond is not None else (lambda v: v)
     size = b.numel()
     maxiter = 10 * size if maxiter is None else maxiter
@@ -92,8 +102,9 @@ def gmres(matvec: Callable, b, tol: float = 1e-5, atol: float = 0.0,
     atol = torch.clamp(tol * _norm(b), min=atol)
     unit, rnorm = _safe_normalize(pc(b - matvec(x)))
     k = 0
-    while k < maxiter and bool(rnorm > atol):
-        x, unit, rnorm = _restart(matvec, pc, b, x, unit, rnorm, restart)
+    while k < maxiter and syncs.any(rnorm > atol):
+        x, unit, rnorm = _restart(matvec, pc, b, x, unit, rnorm, restart,
+                                  syncs)
         k += 1
     return x
 
@@ -135,7 +146,7 @@ def newton_krylov(f: Callable, x0, tol: float = 1e-8, max_iter: int = 30,
     convd = torch.zeros(m, dtype=torch.bool, device=dev)
     it = torch.zeros(m, dtype=torch.int32, device=dev)
     running = torch.ones(m, dtype=torch.bool, device=dev)
-    while bool(running.any()):
+    while host_any(running):
         def jv(v, _x=x):
             return torch.func.jvp(f, (_x,), (v,))[1]
 
@@ -150,7 +161,7 @@ def newton_krylov(f: Callable, x0, tol: float = 1e-8, max_iter: int = 30,
         best_fn = fnorm_of(f(best_x))
         accepted = best_fn <= (1.0 - 1e-4) * fn
         for _ in range(4):
-            if not bool((running & ~accepted).any()):
+            if not host_any(running & ~accepted):
                 break
             lam = torch.where(accepted, lam, lam * 0.5)
             cand = x + lam[:, None] * step

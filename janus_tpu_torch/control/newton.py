@@ -27,7 +27,7 @@ from typing import Callable, Optional
 import torch
 
 from janus_tpu_torch.linalg.smalllu import lu_factor, lu_ok, lu_solve
-from janus_tpu_torch.solve.common import on_device
+from janus_tpu_torch.solve.common import host_any, on_device
 
 
 @dataclasses.dataclass
@@ -97,7 +97,7 @@ def newton_solve(f: Callable, x0, tol: float = 1e-8, max_iter: int = 50,
     running = torch.ones(m, dtype=torch.bool, device=dev)
     while True:
         syncs += 1
-        if not bool(running.any()):
+        if not host_any(running):
             break
         jmat = jac(x) if jac is not None else fd_or_ad_jacobian(f, x,
                                                                 jac_mode)
@@ -115,7 +115,7 @@ def newton_solve(f: Callable, x0, tol: float = 1e-8, max_iter: int = 50,
         accepted = best_fn <= (1.0 - armijo) * fn
         for _ in range(max_backtracks):
             syncs += 1
-            if not bool((running & ~accepted).any()):
+            if not host_any(running & ~accepted):
                 break
             lam = torch.where(accepted, lam, lam * 0.5)
             cand = x + lam[:, None] * step

@@ -21,6 +21,7 @@ import torch
 from janus_tpu_torch.control.newton import (atleast_2d, fd_or_ad_jacobian,
                                             fnorm_of)
 from janus_tpu_torch.linalg.smalllu import lu_factor, lu_ok, lu_solve
+from janus_tpu_torch.solve.common import host_any
 
 
 @dataclasses.dataclass
@@ -49,7 +50,7 @@ def psitc(f: Callable, x0, delta0: float = 1e-2, controller: str = "ser-b",
     convd = torch.zeros(m, dtype=torch.bool, device=dev)
     it = torch.zeros(m, dtype=torch.int32, device=dev)
     running = torch.ones(m, dtype=torch.bool, device=dev)
-    while bool(running.any()):
+    while host_any(running):
         jmat = fd_or_ad_jacobian(f, x, jac_mode)
         amat = eye[None] / delta[:, None, None] + jmat
         lu, piv = lu_factor(amat)

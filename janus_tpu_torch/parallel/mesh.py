@@ -13,7 +13,8 @@ from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import (DTensor, Replicate, Shard,
                                       distribute_tensor)
 
-from janus_tpu_torch.solve.common import LOCKSTEP, default_device, tree_map
+from janus_tpu_torch.solve.common import (default_device, lockstep_group,
+                                          tree_map)
 
 
 def make_mesh(n_devices: Optional[int] = None,
@@ -138,11 +139,17 @@ def lockstep(mesh: DeviceMesh, axis: str = "data"):
     gathered result equals the one-process solve to the bit: some loops
     update every lane until the last lane converges (the IND tangent sweep,
     the adjoint's stage iteration), and with each rank's own gate a rank
-    whose lanes converge sooner would stop sooner. Costs one ``all_reduce``
-    a gate. Covers the fixed-stage Radau solve and ``radau_adjoint``; any
-    other solve raises inside."""
-    token = LOCKSTEP.set(mesh.get_group(axis))
-    try:
+    whose lanes converge sooner would stop sooner, and leave the others
+    waiting in a read it never makes. Costs one ``all_reduce`` a gate.
+
+    Covers every family's forward (radau, radaup, radau_fused, rodas,
+    grk4t, bdf2, dopri5/853, NDF/BDF, SEULEX, with events and IND
+    tangents), ``radau_adjoint`` and the discrete adjoints' backward sweeps
+    (whose shared-parameter gradients stay each rank's own sum: the caller
+    all-reduces them), and the control layer's batched loops (Newton, Ψtc,
+    homotopy, Anderson, Newton–Krylov's outer loop: ``common.host_any``).
+    ``control.krylov.gmres``, one Krylov space over one unbatched system,
+    raises inside: its gates are scalars of that system, which a sharded
+    solve would have to reduce as norms over every rank's rows."""
+    with lockstep_group(mesh.get_group(axis)):
         yield
-    finally:
-        LOCKSTEP.reset(token)

@@ -96,7 +96,7 @@ from janus_tpu_torch.solve.events import normalize_events
 from janus_tpu_torch.solve.options import Options
 from janus_tpu_torch.solve.radau import (_factorize, _gmres_block_core,
                                          _gmres_core, _gmres_mass_blocks,
-                                         _gmres_mass_ops, _HostSyncs,
+                                         _gmres_mass_ops,
                                          default_jacobian, solve_radau)
 from janus_tpu_torch.solve.radau_tables import radau_tableau
 from janus_tpu_torch.solve.radaup import ladder_orders, solve_radau_vo
@@ -366,6 +366,7 @@ class _RadauAdjointFn(torch.autograd.Function):
         sol = _forward_solve(cfg, t0, tf, y0, h0, dleaves,
                              0 if cfg["remat"] else cap)
         ctx.cfg = cfg
+        ctx.lockstep = cm.LOCKSTEP.get()
         ctx.y0_shape = y0.shape
         ctx.n_leaves = len(dleaves)
         ctx.t_in = tuple(x if not isinstance(x, torch.Tensor) else None
@@ -387,6 +388,7 @@ class _RadauAdjointFn(torch.autograd.Function):
 
     @staticmethod
     @once_differentiable
+    @cm.keeps_lockstep
     def backward(ctx, ybar, tbar, _hbar, _idxbar, qbar=None):
         cfg = ctx.cfg
         saved = list(ctx.saved_tensors)
@@ -517,7 +519,7 @@ def _adjoint_sweep(f, opts, jac_user, mass, mesh, nacc, t0b, tfb, t_term,
            else cm.derived_newton_tol(dtype, opts.rtol))
     use_gmres = opts.stage_solver != "lu"
     g_iters = 0 if opts.stage_solver == "tridiag" else opts.gmres_iters
-    syncs = _HostSyncs(lockstep=True)
+    syncs = cm._HostSyncs()
 
     def f2(t, y, dl):
         return f(t, y, rebuild(dl))
@@ -548,8 +550,8 @@ def _adjoint_sweep(f, opts, jac_user, mass, mesh, nacc, t0b, tfb, t_term,
         if mass_t is None:
             return w
         if mass_t.ndim == 2:
-            return torch.einsum("ij,...j->...i", mass_t, w)
-        return torch.einsum("mij,msj->msi" if w.ndim == 3 else "mij,mj->mi",
+            return cm.lane_einsum("ij,...j->...i", mass_t, w)
+        return cm.lane_einsum("mij,msj->msi" if w.ndim == 3 else "mij,mj->mi",
                             mass_t, w)
 
     # terminal velocity ẏ(t_term) = M⁻¹ f(t_term, y_term)
@@ -588,13 +590,13 @@ def _adjoint_sweep(f, opts, jac_user, mass, mesh, nacc, t0b, tfb, t_term,
             gz = jmat_term[:, n1:, n1:]
 
             def gx_t_dot(u):
-                return torch.einsum("mai,ma->mi", gx, u)
+                return cm.lane_einsum("mai,ma->mi", gx, u)
 
             def fz_t_dot(v):
-                return torch.einsum("mia,mi->ma", fz, v)
+                return cm.lane_einsum("mia,mi->ma", fz, v)
 
             def gx_dot(w):
-                return torch.einsum("mai,mi->ma", gx, w)
+                return cm.lane_einsum("mai,mi->ma", gx, w)
         lu_gz = lu_factor(gz, pivot=True)
         lu_gz_t = lu_factor(gz.mT, pivot=True)
         xdot = dense_solve(a_blk, f_term[:, :n1])
@@ -666,9 +668,9 @@ def _adjoint_sweep(f, opts, jac_user, mass, mesh, nacc, t0b, tfb, t_term,
         # τ_i = t_end + c_i·h_b ⇒ θ_i = θ_end·(1 − c_i) on the step polynomial
         th_i = th_end[:, None] * theta[None, :]                    # [M, s]
         pw = torch.stack([th_i ** (q + 1) for q in range(s)], dim=-1)
-        ys = yn[:, None, :] + torch.einsum("msq,mqd->msd", pw, qq)
+        ys = yn[:, None, :] + cm.lane_einsum("msq,mqd->msd", pw, qq)
         pe = torch.stack([th_end ** (q + 1) for q in range(s)], dim=-1)
-        y_hi = yn + torch.einsum("mq,mqd->md", pe, qq)
+        y_hi = yn + cm.lane_einsum("mq,mqd->md", pe, qq)
         t_end = tn + h_eff
         hb = torch.where(live, -h_eff, -1.0)          # signed backward step
         taus = t_end[:, None] + c_nodes[None, :] * hb[:, None]
@@ -743,7 +745,7 @@ def _adjoint_sweep(f, opts, jac_user, mass, mesh, nacc, t0b, tfb, t_term,
         scale = 1.0 + torch.abs(lam)[:, None, :]
         for _ in range(10):
             gs = torch.stack([g_stage(i, z[:, i]) for i in range(s)], dim=1)
-            tif = torch.einsum("ij,mjd->mid", ti_mat, gs)
+            tif = cm.lane_einsum("ij,mjd->mid", ti_mat, gs)
             mw = mdot_t(w)
             rhs_r = tif[:, 0] - (float(tab.mu_real) / hb)[:, None] * mw[:, 0]
             dws = [solve_real(rhs_r)]
@@ -758,7 +760,7 @@ def _adjoint_sweep(f, opts, jac_user, mass, mesh, nacc, t0b, tfb, t_term,
                 dws.append(sol[:, dim:])
             dw = torch.stack(dws, dim=1)
             w = w + dw
-            z = torch.einsum("ij,mjd->mid", t_mat, w)
+            z = cm.lane_einsum("ij,mjd->mid", t_mat, w)
             dn = cm.safe_sqrt(torch.mean(torch.square(dw / scale),
                                          dim=(1, 2)))
             if not syncs.any(live & ok & (dn > tol) & torch.isfinite(dn)):

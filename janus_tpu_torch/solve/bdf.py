@@ -30,7 +30,7 @@ from janus_tpu_torch.linalg.smalllu import lu_factor, lu_ok, lu_solve
 from janus_tpu_torch.solve import common as cm
 from janus_tpu_torch.solve.ndf import _rms
 from janus_tpu_torch.solve.options import Options
-from janus_tpu_torch.solve.radau import (_HostSyncs, _i32, _ipow,
+from janus_tpu_torch.solve.radau import (_i32, _ipow,
                                          _kernel_lu_factor, _kernel_lu_solve,
                                          default_jacobian,
                                          refuse_kernel_derivatives)
@@ -77,7 +77,7 @@ def solve_bdf2(f: Callable, t0, tf, y0, args=None,
     refuse_kernel_derivatives(opts.kernel_lu, "solve_bdf2", y0, t0, tf, args)
     m, dim = y0.shape
     dtype, dev = y0.dtype, y0.device
-    syncs = _HostSyncs()
+    syncs = cm._HostSyncs()
     factor, solve = stage_lu(opts)
     jac_fn = jac if jac is not None else default_jacobian(f)
     newton_tol = (opts.newton_tol if opts.newton_tol > 0

@@ -12,6 +12,9 @@ from __future__ import annotations
 
 import contextvars
 import dataclasses
+import functools
+import math
+from contextlib import contextmanager
 from typing import Dict, Optional
 
 import torch
@@ -108,7 +111,7 @@ class Solution:
         yk = ym.gather(1, idx[:, :, None].expand(-1, -1, dim))
         qk = qm.gather(1, idx[:, :, None, None].expand(-1, -1, s, dim))
         thp = torch.stack([theta ** (p + 1) for p in range(s)], dim=-1)
-        out = yk + torch.einsum("mtp,mtpd->mtd", thp, qk)
+        out = yk + lane_einsum("mtp,mtpd->mtd", thp, qk)
         return torch.where((nacc > n)[:, None, None], torch.nan, out)
 
 
@@ -455,33 +458,189 @@ def comp_add(hi, lo, x):
 LOCKSTEP = contextvars.ContextVar("janus_tpu_torch_lockstep", default=None)
 
 
+@contextmanager
+def lockstep_group(group):
+    """Inside, every host gate is read over ``group``'s ranks (None: each
+    process its own lanes)."""
+    token = LOCKSTEP.set(group)
+    try:
+        yield
+    finally:
+        LOCKSTEP.reset(token)
+
+
+def keeps_lockstep(backward):
+    """An autograd Function's backward, run under the lockstep group its
+    forward ran under (``ctx.lockstep``, which the forward sets from
+    ``LOCKSTEP``): the engine runs a CUDA backward on a thread of its own,
+    where the caller's context variables are not set, so that a sweep
+    there would read its gates on each rank alone."""
+    @functools.wraps(backward)
+    def run(ctx, *grads):
+        with lockstep_group(ctx.lockstep):
+            return backward(ctx, *grads)
+    return run
+
+
+class _HostSyncs:
+    """Counts the host syncs of one solve (each ``bool(t.any())`` is one).
+
+    Inside ``parallel.lockstep`` each read is the maximum over the ranks of
+    the process group (one ``all_reduce``), as XLA's gates of a sharded
+    while_loop are global: every rank then runs the loop trips the
+    one-process solve runs, and a lane's result does not depend on how the
+    batch was split. A loop that updates every lane until the last lane
+    converges (the IND tangent sweep, the adjoint's stage iteration) needs
+    that, and a rank that left a loop early would leave the others waiting
+    in a read it never makes.
+
+    Every family's forward loop reads through this object (radau, radaup,
+    radau_fused, rodas, grk4t, bdf2, dopri5/853, NDF/BDF, SEULEX, and the
+    events' gate), and so do the backward sweeps of ``radau_adjoint`` and of
+    the discrete adjoints (``solve.discrete.live_slots``) and the control
+    layer's batched loops (``host_any``). ``control.krylov.gmres`` (one
+    unbatched system, whose gates are scalars of that system) refuses to
+    run inside ``parallel.lockstep`` itself.
+    """
+
+    reads = 0      # every read of every solve in this process
+
+    def __init__(self):
+        self.count = 0
+        self.group = LOCKSTEP.get()
+
+    def read_max(self, vals):
+        """vals (a 1-D integer tensor) on the host in one sync, as a list,
+        each entry the maximum over the lockstep group's ranks (a mask's
+        entry so is the OR)."""
+        self.count += 1
+        _HostSyncs.reads += 1
+        if self.group is not None:
+            import torch.distributed as dist
+            # NCCL reduces on the card; gloo on the host
+            on = vals.device if dist.get_backend(self.group) == "nccl" \
+                else "cpu"
+            vals = vals.to(on, torch.int64)
+            dist.all_reduce(vals, op=dist.ReduceOp.MAX, group=self.group)
+        return vals.tolist()
+
+    def any(self, mask) -> bool:
+        return bool(self.read_max(mask.any().reshape(1))[0])
+
+    def any_each(self, *masks):
+        """(any(m) for m in masks) read in ONE host sync."""
+        return [bool(v) for v in
+                self.read_max(torch.stack([mask.any() for mask in masks]))]
+
+    def max_int(self, x) -> int:
+        """max of an integer tensor, read in one host sync."""
+        return self.read_max(x.max().reshape(1))[0]
+
+
+def host_any(mask) -> bool:
+    """``bool(mask.any())``, the gate of a batched host loop outside a
+    solve (the control layer's Newton, Ψtc, homotopy, Anderson and GMRES
+    loops): inside ``parallel.lockstep`` the OR over every rank's lanes,
+    so that no rank leaves its loop while another's next solve waits in a
+    read."""
+    return _HostSyncs().any(mask)
+
+
+# ATen's bound (multiply-adds of one product) below which torch.einsum on the
+# CPU adds in its own loop rather than calling MKL
+ATEN_SMALL = 400
+
+
 def lane_einsum(eq: str, *ops):
-    """``torch.einsum`` (no ellipsis), but on CUDA tensors as one broadcast
-    product and one sum over the contracted indices, so that each lane's
-    result does not depend on how many lanes the batch holds: cuBLAS picks
-    its GEMM kernel, and with it the order of the adds, by the size of the
-    problem (on an H100 a 32,768-lane half of the headline parted from the
-    65,536-lane solve in the Newton's stage transform by 2.7e-20). The CPU
-    keeps ``torch.einsum``, whose rounding the parity tests hold."""
-    if not any(t.is_cuda for t in ops):
+    """``torch.einsum(eq, *ops)`` in a form whose result on each lane does
+    not depend on how the batch is split over the ranks of
+    ``parallel.lockstep``. The lanes are the index ``m`` (or the ellipsis).
+    A BLAS picks its kernel, and with it the order of the adds, by the size
+    of the problem: on an H100 cuBLAS parted a 32,768-lane half of the
+    headline from the 65,536-lane solve in the Newton's stage transform by
+    2.7e-20, so on a CUDA tensor this is one broadcast product and one sum,
+    whatever the batch. On the CPU ``torch.einsum`` adds each lane's terms
+    in sequence, plainly in ATen's loop below ``ATEN_SMALL`` multiply-adds
+    and by MKL's fused multiply-adds above (a product of per-lane matrices,
+    where every operand carries an output index, counts one lane's work):
+    outside ``lockstep`` this is ``torch.einsum``, whose rounding the parity
+    tests hold; inside, the same sums in the order ``torch.einsum`` takes
+    for the whole batch over every rank, so that "s,msd->md", "msd,sq->mqd"
+    or "ij,mjd->mid" do not round by the shard's lane count (a ulp at 64
+    against 128 lanes). That CPU order is ATen's and MKL's as of torch
+    2.13.0 (MKL 2024.2, AVX-512), the version the tests check it on.
+
+    ``eq`` must name its lanes ``m`` or ``...``: a lane index of another
+    letter would be counted as a shard's, and the ranks would part by an
+    ulp, so such an equation raises ``ValueError``."""
+    if "m" not in eq and "..." not in eq:
+        raise ValueError(f"lane_einsum({eq!r}): name the lane index 'm' or "
+                         "'...'")
+    if any(t.is_cuda for t in ops):
+        return broadcast_einsum(eq, *ops)
+    group = LOCKSTEP.get()
+    ins, out = _spell_ellipsis(eq, ops)
+    if group is None or set(out).intersection(*map(set, ins)):
         return torch.einsum(eq, *ops)
-    return broadcast_einsum(eq, *ops)
+    sizes = {c: n for spec, t in zip(ins, ops) for c, n in zip(spec, t.shape)}
+    lane = {c: c == "m" or c.isupper() for c in sizes}
+    whole = torch.tensor([math.prod(n for c, n in sizes.items() if lane[c])],
+                         dtype=torch.int64)
+    import torch.distributed as dist
+    dist.all_reduce(whole, group=group)
+    work = int(whole) * math.prod(n for c, n in sizes.items() if not lane[c])
+    return broadcast_einsum(eq, *ops,
+                            order="plain" if work < ATEN_SMALL else "fma")
 
 
-def broadcast_einsum(eq: str, *ops):
-    """``torch.einsum(eq, *ops)`` (no ellipsis) as a broadcast product of
-    the operands, the output's indices first, summed over the rest."""
+def _spell_ellipsis(eq: str, ops):
+    """eq with each ``...`` spelled out in capital letters (right-aligned
+    over the operands' leading dimensions, as einsum broadcasts them):
+    (the inputs' index strings, the output's)."""
     ins, out = eq.replace(" ", "").split("->")
     ins = ins.split(",")
+    if "..." not in eq:
+        return ins, out
+    free = [c for c in "ABCDEFGHIJKLMNOPQRSTUVWXYZ" if c not in eq]
+    n_ell = [t.ndim - (len(spec) - 3) if "..." in spec else 0
+             for spec, t in zip(ins, ops)]
+    ell = "".join(free[:max(n_ell)])
+    ins = [spec.replace("...", ell[len(ell) - n:])
+           for spec, n in zip(ins, n_ell)]
+    return ins, out.replace("...", ell)
+
+
+def broadcast_einsum(eq: str, *ops, order: str = "sum"):
+    """``torch.einsum(eq, *ops)`` as a broadcast product of the operands,
+    the output's indices first, reduced over the rest: by ``torch.sum``
+    (``order="sum"``), or term after term in the order of the contracted
+    indices, each added after its product is rounded (``"plain"``) or by a
+    fused multiply-add of the last operand (``"fma"``, ``torch.addcmul``)."""
+    ins, out = _spell_ellipsis(eq, ops)
     letters = list(out) + [c for c in dict.fromkeys("".join(ins))
                            if c not in out]
-    prod = None
+    views = []
     for spec, t in zip(ins, ops):
         t = t.permute(sorted(range(len(spec)),
                              key=lambda k: letters.index(spec[k])))
         for pos, c in enumerate(letters):
             if c not in spec:
                 t = t.unsqueeze(pos)
-        prod = t if prod is None else prod * t
-    contracted = tuple(range(len(out), len(letters)))
-    return prod.sum(dim=contracted) if contracted else prod
+        views.append(t)
+    n_out = len(out)
+    if n_out == len(letters) or order == "sum":
+        prod = functools.reduce(torch.mul, views)
+        return prod.sum(dim=tuple(range(n_out, len(letters)))) \
+            if n_out < len(letters) else prod
+    head = functools.reduce(torch.mul, views[:-1]) if len(views) > 1 \
+        else torch.ones((1,) * len(letters), dtype=views[0].dtype,
+                        device=views[0].device)
+    last = views[-1]
+    full = torch.broadcast_shapes(head.shape, last.shape)[n_out:]
+    head, last = (x.expand(x.shape[:n_out] + full).reshape(
+        x.shape[:n_out] + (-1,)) for x in (head, last))
+    acc = head[..., 0] * last[..., 0]
+    for i in range(1, last.shape[-1]):
+        acc = torch.addcmul(acc, head[..., i], last[..., i]) \
+            if order == "fma" else acc + head[..., i] * last[..., i]
+    return acc

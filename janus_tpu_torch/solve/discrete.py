@@ -62,6 +62,7 @@ class DiscreteAdjointFn(torch.autograd.Function):
         with torch.no_grad():
             sol = cfg["solve"](t0, tf, y0, cfg["rebuild"](dleaves), h0)
         ctx.cfg = cfg
+        ctx.lockstep = cm.LOCKSTEP.get()
         ctx.y0_shape = y0.shape
         ctx.n_leaves = len(dleaves)
         ctx.t_in = tuple(x if not isinstance(x, torch.Tensor) else None
@@ -79,6 +80,7 @@ class DiscreteAdjointFn(torch.autograd.Function):
 
     @staticmethod
     @once_differentiable
+    @cm.keeps_lockstep
     def backward(ctx, ybar, tbar, _hbar, _idxbar, qbar=None):
         cfg = ctx.cfg
         saved = list(ctx.saved_tensors)
@@ -211,14 +213,22 @@ def live_slots(nacc, triggered, cap, per_slot=None):
     filled, capped at the ring's capacity; the set of slots where a lane's
     terminal event step lies). Every slot above the first is dead for
     every lane, so the loop runs from it down to 0. ``per_slot`` [cap]
-    (integers) is read in the same sync and returned third, as a list."""
-    m = nacc.shape[0]
-    parts = [nacc.max()[None], torch.where(triggered, nacc - 1, -1)]
+    (integers) is read in the same sync and returned third, as a list.
+
+    The read goes through ``common._HostSyncs``: inside
+    ``parallel.lockstep`` each entry is the maximum over the ranks (the
+    event slots as a [cap] mask, so that their OR is a maximum too), and
+    every rank sweeps the same slots."""
+    slot = torch.where(triggered & (nacc >= 1) & (nacc <= cap), nacc - 1,
+                       cap).to(torch.int64)
+    evt = torch.zeros(cap + 1, dtype=torch.int64, device=nacc.device)
+    evt = evt.scatter(0, slot, torch.ones_like(slot))[:cap]
+    parts = [nacc.max().to(torch.int64)[None], evt]
     if per_slot is not None:
-        parts.append(per_slot.to(nacc.dtype))
-    host = torch.cat(parts).tolist()
-    out = (min(host[0], cap), set(host[1:m + 1]) - {-1})
-    return out if per_slot is None else out + (host[m + 1:],)
+        parts.append(per_slot.to(torch.int64))
+    host = cm._HostSyncs().read_max(torch.cat(parts))
+    out = (min(host[0], cap), {k for k in range(cap) if host[1 + k]})
+    return out if per_slot is None else out + (host[1 + cap:],)
 
 
 def overflow_nan(nacc, cap, lam0, grads):

@@ -30,7 +30,7 @@ from janus_tpu_torch.solve import common as cm
 from janus_tpu_torch.solve.events import (handle_events, init_event_state,
                                           normalize_events)
 from janus_tpu_torch.solve.options import Options
-from janus_tpu_torch.solve.radau import _HostSyncs, _i32
+from janus_tpu_torch.solve.radau import _i32
 
 
 class ERKTableau:
@@ -148,7 +148,7 @@ def power_interp(y, q):
     def interp(theta):
         tp = torch.stack([theta ** (i + 1) for i in range(q.shape[1])],
                          dim=-1)
-        return y[:, None, :] + torch.einsum("mtq,mqd->mtd", tp, q)
+        return y[:, None, :] + cm.lane_einsum("mtq,mqd->mtd", tp, q)
 
     return interp
 
@@ -165,7 +165,7 @@ def dop853_fall(tab, feval, t, y, y1, f_new, h, ks):
     delta = y1 - y
     f_old = ks[0]
     fpoly = [delta, hc * f_old - delta, 2.0 * delta - hc * (f_new + f_old)]
-    rest = torch.einsum("qs,msd->mqd", _const(tab.d, kmat), kmat)
+    rest = cm.lane_einsum("qs,msd->mqd", _const(tab.d, kmat), kmat)
     return torch.cat([torch.stack(fpoly, dim=1), h[:, None, None] * rest],
                      dim=1)
 
@@ -190,12 +190,12 @@ def step_interp(tab, feval, t, y, y1, f_new, h, ks):
     evaluates its three extra stages here."""
     if tab.dense == "rk45P":
         k = torch.stack(list(ks) + [f_new], dim=1)              # [M, 7, D]
-        q = h[:, None, None] * torch.einsum("msd,sq->mqd", k,
+        q = h[:, None, None] * cm.lane_einsum("msd,sq->mqd", k,
                                             _const(tab.p, k))
         return power_interp(y, q), lambda: q
     fall = dop853_fall(tab, feval, t, y, y1, f_new, h, ks)
     return (dense_eval_dop853(fall, y),
-            lambda: torch.einsum("jp,mjd->mpd", _const(_DOP853_POW, fall),
+            lambda: cm.lane_einsum("jp,mjd->mpd", _const(_DOP853_POW, fall),
                                  fall))
 
 
@@ -240,7 +240,7 @@ def solve_erk(tab: ERKTableau, f: Callable, t0, tf, y0, args=None,
     t0, tf, y0 = cm.broadcast_batch(t0, tf, y0, device)
     m, dim = y0.shape
     dtype, dev = y0.dtype, y0.device
-    syncs = _HostSyncs()
+    syncs = cm._HostSyncs()
 
     use_quad = quad is not None
     if use_quad:

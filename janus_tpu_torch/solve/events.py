@@ -71,7 +71,7 @@ def handle_events(specs, ev_state, t_old, h, t_new, y_new, interp, accept,
     """Detect and locate events on accepted steps.
 
     interp: theta [M, K] -> y [M, K, D] (the step's continuous extension).
-    syncs: the solve's host-sync counter (``radau._HostSyncs``), or None.
+    syncs: the solve's host-sync counter (``common._HostSyncs``), or None.
     Returns (new_ev_state, terminate [M], t_event [M], y_event [M, D],
     idx [M]: which event fired THIS step, 0 when none).
     """

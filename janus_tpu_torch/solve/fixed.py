@@ -4,10 +4,10 @@ backpropagation.
 The port of ``janus_tpu/solve/fixed.py``. Fixed-step rk4 and midpoint over
 a Python loop that ``torch.autograd`` differentiates through (the
 reference's ``lax.scan``), with each step recomputed in the backward pass
-under ``remat=True`` (``torch.utils.checkpoint``, non-reentrant: the
-reference's ``jax.checkpoint``), so the graph keeps one state per step.
-Per-step parameter slabs (piecewise-constant controls) come in through
-``step_args``. No kernel: plain torch.
+under ``remat=True`` (``_RematStep``, the reference's ``jax.checkpoint``),
+so the graph keeps one state per step. Per-step parameter slabs
+(piecewise-constant controls) come in through ``step_args``. No kernel:
+plain torch.
 """
 
 from __future__ import annotations
@@ -15,7 +15,6 @@ from __future__ import annotations
 from typing import Any, Callable, Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from janus_tpu_torch.solve import common as cm
 
@@ -39,11 +38,66 @@ _STEPPERS = {"rk4": _rk4_step, "midpoint": _midpoint_step}
 
 def _records(*trees) -> bool:
     """Whether autograd records a step on these inputs. Only then is a step
-    checkpointed: the checkpoint's saved-tensor hooks refuse an f built on
-    ``torch.func`` (``ham``'s dynamics), which needs none of it otherwise."""
-    return torch.is_grad_enabled() and any(
-        isinstance(x, torch.Tensor) and x.requires_grad
-        for x in cm.tree_leaves(trees))
+    recomputed in the backward pass; under a ``torch.func`` transform
+    (``grad``, ``vjp``), whose wrapped tensors an ``autograd.Function``
+    without a functorch rule refuses, the step keeps its stages."""
+    leaves = [x for x in cm.tree_leaves(trees) if isinstance(x, torch.Tensor)]
+    if any(torch._C._functorch.is_functorch_wrapped_tensor(x)
+           for x in leaves):
+        return False
+    return torch.is_grad_enabled() and any(x.requires_grad for x in leaves)
+
+
+class _RematStep(torch.autograd.Function):
+    """One step y -> stepper(f, t, y, h, fa) that keeps only its inputs: the
+    forward runs the step without a graph, the backward runs it again under
+    autograd and pulls the cotangent through it with
+    ``torch.autograd.grad``. Inputs: the step (a function of y and the
+    leaves), then y and the leaves of (t, h, fa) that require grad. Unlike
+    ``torch.utils.checkpoint`` it installs no saved-tensor hooks, which
+    ``torch.func`` refuses (an f built on ``torch.func.grad``, as
+    ``ham``'s dynamics are), and unlike a reentrant checkpoint it takes
+    ``torch.autograd.grad`` as well as ``.backward()``."""
+
+    @staticmethod
+    def forward(ctx, run, y, *leaves):
+        ctx.run = run
+        ctx.lockstep = cm.LOCKSTEP.get()
+        ctx.save_for_backward(y, *leaves)
+        with torch.no_grad():
+            return run(y, leaves)
+
+    @staticmethod
+    @cm.keeps_lockstep
+    def backward(ctx, ybar):
+        create = torch.is_grad_enabled()
+        y, *leaves = ctx.saved_tensors
+        ins = [x.detach().requires_grad_(need) for x, need in
+               zip([y, *leaves], ctx.needs_input_grad[1:])]
+        with torch.enable_grad():
+            out = ctx.run(ins[0], ins[1:])
+        wrt = [x for x in ins if x.requires_grad]
+        grads = iter(torch.autograd.grad(out, wrt, ybar, allow_unused=True,
+                                         create_graph=create))
+        return (None, *(next(grads) if x.requires_grad else None
+                        for x in ins))
+
+
+def _remat_step(stepper, f, t, y, h, fa):
+    """stepper(f, t, y, h, fa) through ``_RematStep``, with the tensors of
+    (t, h, fa) that require grad as its differentiable inputs."""
+    leaves, unflatten = cm.tree_flatten((t, h, fa))
+    grad_at = [i for i, x in enumerate(leaves)
+               if isinstance(x, torch.Tensor) and x.requires_grad]
+
+    def run(yy, diff):
+        new = list(leaves)
+        for i, x in zip(grad_at, diff):
+            new[i] = x
+        tt, hh, ffa = unflatten(new)
+        return stepper(f, tt, yy, hh, ffa)
+
+    return _RematStep.apply(run, y, *(leaves[i] for i in grad_at))
 
 
 def odeint_fixed(f: Callable, t0, tf, y0, n_steps: int, args: Any = None,
@@ -79,9 +133,7 @@ def odeint_fixed(f: Callable, t0, tf, y0, n_steps: int, args: Any = None,
         fa = args if step_args is None else \
             (args, cm.tree_map(lambda a, _k=k: a[_k], step_args))
         if remat and _records(y, t, h, fa):
-            y = checkpoint(lambda yy, _t=t, _fa=fa: stepper(f, _t, yy, h,
-                                                            _fa),
-                           y, use_reentrant=False)
+            y = _remat_step(stepper, f, t, y, h, fa)
         else:
             y = stepper(f, t, y, h, fa)
         if save_trajectory:

@@ -49,7 +49,7 @@ from janus_tpu_torch.solve import common as cm
 from janus_tpu_torch.solve.events import (handle_events, init_event_state,
                                           normalize_events)
 from janus_tpu_torch.solve.options import Options
-from janus_tpu_torch.solve.radau import (_HostSyncs, _gmres_mass_ops, _i32,
+from janus_tpu_torch.solve.radau import (_gmres_mass_ops, _i32,
                                          _kernel_lu_factor, _kernel_lu_solve,
                                          default_jacobian,
                                          gmres_shifted_solver,
@@ -278,7 +278,7 @@ def solve_bdf(f: Callable, t0, tf, y0, args=None,
     t0, tf, y0 = cm.broadcast_batch(t0, tf, y0, device)
     m, dim = y0.shape
     dtype, dev = y0.dtype, y0.device
-    syncs = _HostSyncs()
+    syncs = cm._HostSyncs()
 
     use_quad = quad is not None
     if use_quad:

@@ -68,54 +68,6 @@ from janus_tpu_torch.solve.options import Options
 from janus_tpu_torch.solve.radau_tables import radau_tableau
 
 
-class _HostSyncs:
-    """Counts the host syncs of one solve (each ``bool(t.any())`` is one).
-
-    Inside ``parallel.lockstep`` each read is the maximum over the ranks of
-    the process group (one ``all_reduce``), as XLA's gates of a sharded
-    while_loop are global: every rank then runs the loop trips the
-    one-process solve runs, and a lane's result does not depend on how the
-    batch was split. A loop that updates every lane until the last lane
-    converges (the IND tangent sweep, the adjoint's stage iteration) needs
-    that. Only a solve whose every host read goes through this object may
-    run so (``lockstep=True``); any other raises there rather than letting
-    the ranks' loops part.
-    """
-
-    def __init__(self, lockstep: bool = False):
-        self.count = 0
-        self.group = cm.LOCKSTEP.get()
-        if self.group is not None and not lockstep:
-            raise NotImplementedError(
-                "parallel.lockstep covers the fixed-stage Radau solve and "
-                "radau_adjoint only")
-
-    def _read(self, vals):
-        """vals (a 1-D integer tensor) on the host, reduced by max over the
-        lockstep group's ranks."""
-        self.count += 1
-        if self.group is not None:
-            import torch.distributed as dist
-            # NCCL reduces on the card; gloo on the host
-            on = vals.device if dist.get_backend(self.group) == "nccl" \
-                else "cpu"
-            vals = vals.to(on, torch.int64)
-            dist.all_reduce(vals, op=dist.ReduceOp.MAX, group=self.group)
-        return vals.tolist()
-
-    def any(self, mask) -> bool:
-        return bool(self._read(mask.any().reshape(1))[0])
-
-    def any_each(self, *masks):
-        """(any(m) for m in masks) read in ONE host sync."""
-        return [bool(v) for v in
-                self._read(torch.stack([mask.any() for mask in masks]))]
-
-    def max_int(self, x) -> int:
-        """max of an integer tensor, read in one host sync."""
-        return self._read(x.max().reshape(1))[0]
-
-
 def _ipow(x, n: int):
     """x**n for a static int n > 0 by the same square-and-multiply sequence
     as the reference's integer powers (so both round alike)."""
@@ -230,8 +182,8 @@ def _mass_dot(mass):
     if mass is None:
         return lambda w: w
     if mass.ndim == 2:
-        return lambda w: torch.einsum("ij,...j->...i", mass, w)
-    return lambda w: torch.einsum(
+        return lambda w: cm.lane_einsum("ij,...j->...i", mass, w)
+    return lambda w: cm.lane_einsum(
         "mij,mj->mi" if w.ndim == 2 else "mij,kmsj->kmsi", mass, w)
 
 
@@ -846,7 +798,7 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
     m, dim = y0.shape
     dtype, dev = y0.dtype, y0.device
     npair = (s - 1) // 2
-    syncs = _HostSyncs(lockstep=True)
+    syncs = cm._HostSyncs()
 
     use_kernel = opts.kernel_lu and not use_gmres
     refuse_kernel_derivatives(use_kernel, "solve_radau", y0, t0, tf, args,

@@ -32,7 +32,6 @@ from torch.func import jvp
 
 from janus_tpu_torch.solve import common as cm
 from janus_tpu_torch.solve.options import Options
-from janus_tpu_torch.solve.radau import _HostSyncs
 from janus_tpu_torch.solve.radau_tables import radau_tableau
 
 NEWTON_MAXITER = 6
@@ -493,7 +492,7 @@ def _solve(f, t0, tf, y0, args, options, step, device=None):
     consts = step_consts(opts, st.dtype)
     dim = (st.shape[0] - 15) // 5
     active = _row_layout(dim)[0]["active"]
-    syncs = _HostSyncs()
+    syncs = cm._HostSyncs()
     while syncs.any(st[active] > 0.5):
         st = step(st, tf_row, consts)
     return solution_of(st, dim), syncs.count

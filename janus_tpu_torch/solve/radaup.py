@@ -64,7 +64,7 @@ from janus_tpu_torch.solve.events import (handle_events, init_event_state,
 from janus_tpu_torch.solve.ndf import _rms, _sum_seq
 from janus_tpu_torch.solve.options import Options
 from janus_tpu_torch.solve.radau import (_event_tangent_jump, _factorize,
-                                         _gmres_stage_solver, _HostSyncs,
+                                         _gmres_stage_solver,
                                          _i32, _ipow, _kernel_lu_factor,
                                          _kernel_lu_solve, _mass_dot,
                                          _newton, _tangent_stages,
@@ -194,7 +194,7 @@ def solve_radau_vo(f: Callable, t0, tf, y0, args=None,
     t0, tf, y0 = cm.broadcast_batch(t0, tf, y0)
     m, dim = y0.shape
     dtype, dev = y0.dtype, y0.device
-    syncs = _HostSyncs()
+    syncs = cm._HostSyncs()
 
     def as_t(a):
         return torch.as_tensor(a, dtype=dtype, device=dev)
@@ -413,14 +413,14 @@ def solve_radau_vo(f: Callable, t0, tf, y0, args=None,
             theta = 1.0 + c_nodes[None, :] * (h / h_prev)[:, None]
             powers = torch.stack([_ipow(theta, q + 1) for q in range(smax)],
                                  dim=-1)                         # [M, s, Q]
-            poly_at = torch.einsum("msq,mqd->msd", powers, q_poly)
+            poly_at = cm.lane_einsum("msq,mqd->msd", powers, q_poly)
             z0 = torch.where(have_sol[:, None, None],
                              poly_at - poly_1[:, None, :], 0.0)
             z, cv, ni, nf, rt = _newton(tab, f, t, y, h, z0, scale_n,
                                         newton_tol, *solvers[s], run_s,
                                         max_iter, args, syncs, mass=mass)
-            ze_s = torch.einsum("s,msd->md", e_vec, z) / h[:, None]
-            q_s = _pad_stages(torch.einsum("msd,sq->mqd", z, p_mat), smax, 1)
+            ze_s = cm.lane_einsum("s,msd->md", e_vec, z) / h[:, None]
+            q_s = _pad_stages(cm.lane_einsum("msd,sq->mqd", z, p_mat), smax, 1)
             conv = torch.where(run_s, cv, conv)
             y_new = torch.where(run_s[:, None], y + z[:, -1, :], y_new)
             ze = torch.where(run_s[:, None], ze_s, ze)
@@ -488,7 +488,7 @@ def solve_radau_vo(f: Callable, t0, tf, y0, args=None,
                 yd_delta = torch.where(msk[None, :, None], zd[:, :, -1, :],
                                        yd_delta)
                 if need_qd:
-                    qd = torch.einsum("kmsd,sq->kmqd", zd, consts[s][2])
+                    qd = cm.lane_einsum("kmsd,sq->kmqd", zd, consts[s][2])
                     qd_all = torch.where(msk[None, :, None, None],
                                          _pad_stages(qd, smax, 2), qd_all)
             yd = torch.where(accept[None, :, None], yd + yd_delta, yd)
@@ -531,19 +531,19 @@ def solve_radau_vo(f: Callable, t0, tf, y0, args=None,
         def interp(theta):                          # [M, T] -> [M, T, D]
             tp = torch.stack([_ipow(theta, q + 1) for q in range(smax)],
                              dim=-1)
-            return y[:, None, :] + torch.einsum("mtq,mqd->mtd", tp, q_new)
+            return y[:, None, :] + cm.lane_einsum("mtq,mqd->mtd", tp, q_new)
 
         if use_dense:
             inside, tpow = cm.dense_window(t_eval, t, h, accept, smax)
             out_ys = torch.where(
                 inside[..., None],
-                y[:, None, :] + torch.einsum("mtq,mqd->mtd", tpow, q_new),
+                y[:, None, :] + cm.lane_einsum("mtq,mqd->mtd", tpow, q_new),
                 out_ys)
             if use_sens:
                 out_sd = torch.where(
                     inside[None, :, :, None],
                     yd_old[:, :, None, :]
-                    + torch.einsum("mtq,kmqd->kmtd", tpow, qd_all), out_sd)
+                    + cm.lane_einsum("mtq,kmqd->kmtd", tpow, qd_all), out_sd)
 
         ev, terminate, t_ev, y_ev, ev_idx = handle_events(
             specs, ev, t, h, t_new, y_new, interp, accept, args, syncs)

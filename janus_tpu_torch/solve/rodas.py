@@ -47,7 +47,7 @@ from janus_tpu_torch.solve import common as cm
 from janus_tpu_torch.solve.events import (handle_events, init_event_state,
                                           normalize_events)
 from janus_tpu_torch.solve.options import Options
-from janus_tpu_torch.solve.radau import (STEP_ARGS_GUARD, _HostSyncs, _i32,
+from janus_tpu_torch.solve.radau import (STEP_ARGS_GUARD, _i32,
                                          _kernel_lu_factor, _kernel_lu_solve,
                                          default_jacobian,
                                          refuse_kernel_derivatives)
@@ -90,8 +90,8 @@ def mass_dot(mass):
     if mass is None:
         return lambda v: v
     if mass.ndim == 2:
-        return lambda v: torch.einsum("ij,...j->...i", mass, v)
-    return lambda v: torch.einsum("mij,...mj->...mi", mass, v)
+        return lambda v: cm.lane_einsum("ij,...j->...i", mass, v)
+    return lambda v: cm.lane_einsum("mij,...mj->...mi", mass, v)
 
 
 def stage_increments(f, slv, mdot, t, h, y, f1, fx, args):
@@ -207,7 +207,7 @@ def solve_rodas(f: Callable, t0, tf, y0, args=None,
                               args, tangents, args_tangents, mass, step_args)
     m, dim = y0.shape
     dtype, dev = y0.dtype, y0.device
-    syncs = _HostSyncs()
+    syncs = cm._HostSyncs()
     jac_fn = jac if jac is not None else default_jacobian(f)
     if mass is not None:
         mass = cm.like(mass, y0)
@@ -507,7 +507,7 @@ def _tangent_step(f, jac_fn, mdot, slv, kernel_lu, t, h, y, ks, y5, y_emb,
     dfx = app(lambda yy, aa: ft_at(f, t, yy, aa), y, yd)  # [K, M, D]
 
     def djk(ki):                             # −d(E)·k_i = dJ[δ]·k_i
-        return torch.einsum("kmij,mj->kmi", djac, ki)
+        return cm.lane_einsum("kmij,mj->kmi", djac, ki)
 
     hck = h[None, :, None]
     dk1 = slv_k(app(f_at(t), y, yd) + (h * D1)[None, :, None] * dfx

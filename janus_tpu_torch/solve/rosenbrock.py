@@ -23,7 +23,7 @@ from janus_tpu_torch.solve import common as cm
 from janus_tpu_torch.solve.bdf import check_kernel_lu, stage_lu
 from janus_tpu_torch.solve.ndf import _rms
 from janus_tpu_torch.solve.options import Options
-from janus_tpu_torch.solve.radau import (_HostSyncs, _i32, default_jacobian,
+from janus_tpu_torch.solve.radau import (_i32, default_jacobian,
                                          refuse_kernel_derivatives)
 from janus_tpu_torch.solve.radau_fused import _rdiv
 from janus_tpu_torch.solve.radaup import _pow
@@ -56,7 +56,7 @@ def solve_ros4(f: Callable, t0, tf, y0, args=None,
     refuse_kernel_derivatives(opts.kernel_lu, "solve_ros4", y0, t0, tf, args)
     m, dim = y0.shape
     dtype, dev = y0.dtype, y0.device
-    syncs = _HostSyncs()
+    syncs = cm._HostSyncs()
     factor, solve = stage_lu(opts)
     jac_fn = jac if jac is not None else default_jacobian(f)
     eye = torch.eye(dim, dtype=dtype, device=dev)

@@ -55,7 +55,7 @@ from janus_tpu_torch.solve.events import (handle_events, init_event_state,
                                           normalize_events)
 from janus_tpu_torch.solve.ndf import _rms
 from janus_tpu_torch.solve.options import Options
-from janus_tpu_torch.solve.radau import (_HostSyncs, _i32, _kernel_lu_factor,
+from janus_tpu_torch.solve.radau import (_i32, _kernel_lu_factor,
                                          _kernel_lu_solve, default_jacobian,
                                          refuse_kernel_derivatives)
 from janus_tpu_torch.solve.radau_fused import _rdiv
@@ -218,7 +218,7 @@ def solve_seulex(f: Callable, t0, tf, y0, args=None,
                               args, tangents, args_tangents, mass, step_args)
     m, dim = y0.shape
     dtype, dev = y0.dtype, y0.device
-    syncs = _HostSyncs()
+    syncs = cm._HostSyncs()
     jac_fn = jac if jac is not None else default_jacobian(f)
     if mass is not None:
         mass = cm.like(mass, y0)

@@ -31,7 +31,7 @@ from janus_tpu_torch.interop import options_from_jax
 from janus_tpu_torch.solve import (EVENT_TERMINATED, Event, radau_adjoint,
                                    solve_ivp)
 from janus_tpu_torch.solve import events as events_mod
-from janus_tpu_torch.solve.radau import _HostSyncs
+from janus_tpu_torch.solve.common import _HostSyncs
 
 torch.set_num_threads(1)
 

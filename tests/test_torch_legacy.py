@@ -23,7 +23,10 @@ samples to 1e-10 relative to the array's largest entry. Two findings
   port's own one-ulp spread plus 1e-10, naccept within 10%.
 
 ``odeint_fixed``: y to 1e-12 and its autograd gradient to ``jax.grad`` of
-the reference's to 1e-10, with and without ``step_args`` and ``remat``.
+the reference's to 1e-10, with and without ``step_args`` and ``remat``;
+with ``remat`` and an rhs built on ``torch.func`` (``vmap(grad(H))``) the
+gradient to 1e-12 relative, through ``.backward()`` and
+``torch.autograd.grad``.
 """
 
 import jax
@@ -225,6 +228,57 @@ def test_odeint_fixed_matches_reference(method, slabs, remat):
     close(traj, traj_ref, 1e-12, "trajectory")
     for n, g in zip(names, g_ref):
         close(p[n].grad, g, 1e-10, f"gradient of {n}")
+
+
+def _ham_rhs(xp, vmap, grad):
+    """q' = ∂H/∂p, p' = −∂H/∂q of H = p²/2 + μq²/2 + q⁴/10, one μ a lane,
+    by ``vmap(grad(H))``."""
+    def ham(y, mu):
+        q, p = y[0], y[1]
+        return p * p / 2 + mu * q * q / 2 + q ** 4 / 10
+
+    dh = vmap(grad(ham))
+
+    def rhs(t, y, mu):
+        g = dh(y, mu)
+        return xp.stack([g[:, 1], -g[:, 0]], -1)
+    return rhs
+
+
+@pytest.mark.parametrize("via", ["backward", "autograd_grad",
+                                 "torch_func_grad"])
+def test_odeint_fixed_remat_through_torch_func_rhs(via):
+    """Reverse mode through odeint_fixed(remat=True) of a ``torch.func``
+    rhs (2 lanes, 20 rk4 steps): the gradient in y0 and μ equals jax.grad
+    of the reference's to 1e-12 relative (under ``torch.func.grad`` the
+    steps keep their stages)."""
+    y0 = np.array([[1.0, 0.3], [-0.4, 0.8]])
+    mu = np.array([0.7, 2.0])
+    w = np.array([[1.0, -2.0], [0.5, 3.0]])
+
+    def loss(xp, rhs, fn, yy, mm):
+        return xp.sum(xp.asarray(w) * fn(rhs, 0.0, 1.3, yy, 20, mm,
+                                         remat=True) ** 2)
+
+    j_rhs = _ham_rhs(jnp, jax.vmap, jax.grad)
+    g_ref = jax.grad(lambda a, b: loss(jnp, j_rhs, ref_odeint_fixed, a, b),
+                     argnums=(0, 1))(jnp.asarray(y0), jnp.asarray(mu))
+    t_rhs = _ham_rhs(torch, torch.func.vmap, torch.func.grad)
+    yy = torch.tensor(y0, requires_grad=True)
+    mm = torch.tensor(mu, requires_grad=True)
+    if via == "torch_func_grad":
+        got = torch.func.grad(lambda a, b: loss(torch, t_rhs, odeint_fixed,
+                                                a, b), argnums=(0, 1))(
+            yy.detach(), mm.detach())
+    elif via == "backward":
+        loss(torch, t_rhs, odeint_fixed, yy, mm).backward()
+        got = (yy.grad, mm.grad)
+    else:
+        got = torch.autograd.grad(loss(torch, t_rhs, odeint_fixed, yy, mm),
+                                  (yy, mm))
+    for name, g, want in zip(("y0", "mu"), got, g_ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(want), rtol=1e-12,
+                                   atol=0, err_msg=name)
 
 
 def test_odeint_fixed_shapes_and_device():

@@ -220,17 +220,20 @@ def test_one_rank_mesh_shards_and_gathers(monkeypatch):
         assert torch.equal(rep.full_tensor(), x)
         assert parallel.global_batch_mesh(device="cpu").size() == 1
         # lockstep on one rank: the gates read through the group, the same
-        # solve; a family whose reads are not all gated raises
+        # solve, for fixed-stage Radau and for another family (bdf)
         y0 = torch.tensor([[2.0, 0.0]] * 3, dtype=torch.float64)
         mus = torch.tensor([1.0, 10.0, 100.0], dtype=torch.float64)
         opts = Options(rtol=1e-6, atol=1e-9)
         want = solve_radau(vdp_rhs, 0.0, 0.5, y0, args=mus, options=opts)
+        want_bdf = solve_ivp(vdp_rhs, (0.0, 0.5), y0, method="bdf", args=mus)
         with parallel.lockstep(mesh):
             got = solve_radau(vdp_rhs, 0.0, 0.5, y0, args=mus, options=opts)
-            with pytest.raises(NotImplementedError, match="lockstep"):
-                solve_ivp(vdp_rhs, (0.0, 0.5), y0, method="bdf", args=mus)
-        assert torch.equal(got.y, want.y)
-        assert torch.equal(got.stats["naccept"], want.stats["naccept"])
+            got_bdf = solve_ivp(vdp_rhs, (0.0, 0.5), y0, method="bdf",
+                                args=mus)
+        for a, b in ((got, want), (got_bdf, want_bdf)):
+            assert torch.equal(a.y, b.y)
+            assert torch.equal(a.status, b.status)
+            assert torch.equal(a.stats["naccept"], b.stats["naccept"])
     finally:
         dist.destroy_process_group()
 
@@ -260,6 +263,9 @@ def test_sharded_sweep_matches_the_reference_sweep(ranks):
 
 @pytest.mark.parametrize("eq,shapes", [
     ("ij,mjd->mid", [(5, 5), (7, 5, 2)]),
+    ("ij,...j->...i", [(5, 5), (2, 7, 5)]),
+    ("mij,...mj->...mi", [(7, 5, 5), (7, 5)]),
+    ("mij,...mj->...mi", [(7, 5, 5), (3, 7, 5)]),
     ("ij,kmjd->kmid", [(5, 5), (2, 7, 5, 2)]),
     ("msq,mqd->msd", [(7, 5, 5), (7, 5, 2)]),
     ("s,msd->md", [(5,), (7, 5, 2)]),
@@ -268,13 +274,16 @@ def test_sharded_sweep_matches_the_reference_sweep(ranks):
     ("kmqd,mq->kmd", [(2, 7, 5, 2), (7, 5)]),
 ])
 def test_broadcast_einsum_is_einsum(eq, shapes):
-    """The card's form of the Radau stage contractions (``lane_einsum`` on a
-    CUDA tensor) computes torch.einsum's function."""
+    """The batch-size-free forms of the lane contractions (``lane_einsum``:
+    a broadcast product and a sum on a CUDA tensor, the terms added in
+    sequence, plainly or by fused multiply-adds, on the CPU in
+    ``lockstep``) compute torch.einsum's function."""
     from janus_tpu_torch.solve.common import broadcast_einsum
     rng = np.random.default_rng(0)
     ops = [torch.as_tensor(rng.standard_normal(s)) for s in shapes]
     want = torch.einsum(eq, *ops)
-    got = broadcast_einsum(eq, *ops)
-    assert got.shape == want.shape
-    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-13,
-                               atol=1e-14)
+    for order in ("sum", "plain", "fma"):
+        got = broadcast_einsum(eq, *ops, order=order)
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-13,
+                                   atol=1e-14)

@@ -7,7 +7,9 @@ Usage, from the root of a checkout, on a machine with a CUDA card and nvcc:
 
 Phases, one line each (everything is made from fixed seeds):
 1. device: torch's name for the card and nvidia-smi's name and power limit;
-2. build: compiles the CUDA kernels from janus_tpu_torch/csrc (first use);
+2. build: compiles the CUDA kernels from janus_tpu_torch/csrc (first use)
+   while phase 25 traces its cases, then starts phase 25's unit builds
+   (one thread and one nvcc a unit) and scipy workers beside phases 3-24;
 3. kernels: K1 (lu_factor_t) and K2 (lu_solve_t) against their plain torch
    twins on the card, M = 65,536 and a ragged 700, D in {2, 4, 3, 6}; f64 at
    rtol 1e-12 and f32 at rtol 1e-5, each relative to the largest entry of
@@ -16,7 +18,9 @@ Phases, one line each (everything is made from fixed seeds):
    each kernel's time next to its twin's (CUDA events), next to its bound
    (the bytes it must move over the card's memory rate) and next to the
    PyTorch call that computes the same function (torch.linalg.lu_factor
-   with pivot=False, lu_solve), at D=4, M=65,536 f64;
+   with pivot=False, lu_solve), at D=4, M=65,536 f64; then D = 24 (the
+   run-time-D kernels above 16), M=65,536 f64: K1 and K2 equal to their
+   twins to the bit, each time beside its twin's and its bound;
 4. headline f64: bench.py's configuration through the port -- 65,536 stiff
    Van der Pol lanes (mu = 1e3, t in [0, 1]), Radau IIA s=5, rtol 1e-6,
    atol 1e-9, pivot-free stage LU through K1/K2, analytic Jacobian, K = 2
@@ -251,6 +255,17 @@ Phases, one line each (everything is made from fixed seeds):
     instances equal to the bit; and in this process each family's first
     32,768 lanes solved alone equal to those lanes of the 65,536-lane
     solve.
+25. K4 for any right-hand side up to D = 8 (janus_tpu_torch.bench.
+    fused_any, its shortest check): solve_ivp(..., method='radau_fused')
+    through functors generated from the traced f (ops.rhs_codegen) on
+    dubins_pmp_rhs (D=6) and hires_rhs (D=8) at 65,536 lanes, the
+    Hamiltonian VdP (mu in a closure), orego, e5, brusselator, lambdas
+    around vdp_rhs and robertson_rhs at 4,096 lanes, and orego in f32:
+    every lane SUCCESS (f32 >= 0.99), K4 launched; 1 and 32 attempts of K4
+    on 4,096 lanes equal to _step_ref to the bit; the lambdas equal to the
+    hand-written functors to the bit; 8 lanes against scipy's Radau; K4's
+    ms a solve beside its bound, the unit's registers, spills, threads a
+    block, blocks a SM and cold build seconds.
 
 Then one JSON line with the kernels' records, nvidia-smi's line, and last
 {"ok": true, "device": {...}}. Any failed check raises; no phase's failure
@@ -263,6 +278,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -299,6 +315,7 @@ def main():
     from janus_tpu_torch.bench import control as control_probe
     from janus_tpu_torch.bench import dopri as dopri_probe
     from janus_tpu_torch.bench import examples as examples_probe
+    from janus_tpu_torch.bench import fused_any as fused_any_probe
     from janus_tpu_torch.bench import ham as ham_probe
     from janus_tpu_torch.bench import infra as infra_probe
     from janus_tpu_torch.bench import kernels as bench
@@ -331,10 +348,29 @@ def main():
           flush=True)
 
     # ---- 2. build ----------------------------------------------------------
+    # the kernels' nvcc runs in a thread while phase 25 traces its cases;
+    # their unit builds and scipy workers start once it is done, and run
+    # beside phases 3-24
     t_b = time.perf_counter()
+    built = {}
+
+    def build_kernels():
+        built["path"] = _build.build()
+        built["t"] = time.perf_counter()
+
+    main_build = threading.Thread(target=build_kernels, daemon=True)
+    main_build.start()
+    fused_started = fused_any_probe.start(dev, smoke=True, launch=False)
+    main_build.join()
+    if "path" not in built:
+        _build.build()                  # raises the build's error here
     _build.load_library()
+    fused_any_probe.launch_builds(fused_started)
+    print(f"[build] phase 25: {len(fused_started['units'])} generated units "
+          f"traced in {fused_started['trace_s']:.2f} s, building in the "
+          "background", flush=True)
     print(f"[build] K1-K4 from janus_tpu_torch/csrc/*.cu with "
-          f"{' '.join(_build.ARCH_FLAGS)}: {time.perf_counter() - t_b:.2f} s",
+          f"{' '.join(_build.ARCH_FLAGS)}: {built['t'] - t_b:.2f} s",
           flush=True)
 
     # ---- 3. kernels against their twins ------------------------------------
@@ -386,6 +422,37 @@ def main():
                           f"{extra['lu_solve_t'][2]:.4f})", flush=True)
     print(f"[kernels] agree with twins: max|err| K1 {err['K1']}, "
           f"K2 {err['K2']}", flush=True)
+    # above D = 16: the run-time-D kernels, to the bit
+    d_big = 24
+    a = rng.standard_normal((M, d_big, d_big)) + 5.0 * np.eye(d_big)
+    b = rng.standard_normal((M, d_big))
+    a_t = torch.from_numpy(np.ascontiguousarray(
+        a.transpose(1, 2, 0).reshape(d_big * d_big, M))).to(dev)
+    b_t = torch.from_numpy(np.ascontiguousarray(b.T)).to(dev)
+    lu_ref = smalllu.lu_factor_t_ref(a_t)
+    x_ref = smalllu.lu_solve_t_ref(lu_ref, b_t)
+    big = {}
+    for name, kern, twin, ref, ins in (
+            ("lu_factor_t", smalllu.lu_factor_t, smalllu.lu_factor_t_ref,
+             lu_ref, (a_t,)),
+            ("lu_solve_t", smalllu.lu_solve_t, smalllu.lu_solve_t_ref,
+             x_ref, (lu_ref, b_t))):
+        got = kern(*ins)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            _fail(f"{name} D={d_big}: not equal to its twin to the bit "
+                  f"(max|err| {float((got - ref).abs().max()):.3e})")
+        bms, by = bench.bound_ms(*bench.lu_work(name, d_big, M,
+                                                torch.float64), torch.float64)
+        big[name] = {"D": d_big, "ms": bench.events_ms(lambda: kern(*ins), 5),
+                     "plain_ms": bench.events_ms(lambda: twin(*ins), 1),
+                     "bound_ms": bms, "bound_by": by}
+    print(f"[kernels D={d_big}] M={M} float64, run-time-D kernels, equal to "
+          "their twins to the bit: " + ", ".join(
+              f"{n} {r['ms']:.4f} ms (twin {r['plain_ms']:.1f}, bound "
+              f"{r['bound_ms']:.4f} by {r['bound_by']})"
+              for n, r in big.items()), flush=True)
+    del a, b, a_t, b_t, lu_ref, x_ref
 
     # ---- 4. headline, f64 --------------------------------------------------
     def headline(dtype, kernel_lu, compensated=False):
@@ -834,6 +901,11 @@ def main():
     lockstep = {k: lockstep_probe.launches_by_family(lock_report, k)
                 for k in ("K1", "K2", "K4")}
     print(f"[phase 24] {time.perf_counter() - t24:.1f} s", flush=True)
+
+    # ---- 25. K4 for any right-hand side up to D = 8 -----------------------
+    t25 = time.perf_counter()
+    fused = fused_any_probe.run(dev, smoke=True, started=fused_started)
+    print(f"[phase 25] {time.perf_counter() - t25:.1f} s", flush=True)
     print(f"[total] {time.perf_counter() - t_start:.1f} s, the build "
           "included", flush=True)
 
@@ -851,7 +923,7 @@ def main():
          "launches_rodas": rodas_launches["K1"],
          **{k: v["K1"] for k, v in route.items()},
          "launches_sharded": [r["K1"] for r in sharded],
-         "launches_lockstep": lockstep["K1"]},
+         "launches_lockstep": lockstep["K1"], "above_16": big["lu_factor_t"]},
         {"name": "lu_solve_t", "route": "cuda",
          "source": "janus_tpu_torch/csrc/smalllu.cu",
          "replaces": "janus_tpu/ops/smalllu_pallas.py:115",
@@ -862,7 +934,7 @@ def main():
          "launches_rodas": rodas_launches["K2"],
          **{k: v["K2"] for k, v in route.items()},
          "launches_sharded": [r["K2"] for r in sharded],
-         "launches_lockstep": lockstep["K2"]},
+         "launches_lockstep": lockstep["K2"], "above_16": big["lu_solve_t"]},
         {"name": "linsolve_fused", "route": "cuda",
          "source": "janus_tpu_torch/csrc/smalllu.cu",
          "replaces": "janus_tpu/ops/smalllu_pallas.py:55",
@@ -871,7 +943,7 @@ def main():
          "bound_by": k3_bound[1], "library_ms": k3_lib,
          "shape": f"D=4 M={M} float64 (library: pivoted solve)"},
         {"name": "radau5_step", "route": "cuda",
-         "source": "janus_tpu_torch/csrc/radau_fused.cu",
+         "source": "janus_tpu_torch/csrc/radau_fused.cu + radau5_step.cuh",
          "replaces": "janus_tpu/solve/radau_fused.py:170",
          "launches": launches["K4"], "max_abs_err": k4_err["float64"],
          "ms": k4_rec["ms"], "plain_ms": sec_p * 1e3,
@@ -880,6 +952,8 @@ def main():
          "launches_sharded": lockstep["K4"]["radau_fused"],
          "shape": f"every K4 launch of one radau_fused solve, VdP D=2 "
                   f"M={M} float64 (plain: the twin loop's solve)"},
+        *[fused_any_probe.kernel_record(name, rec)
+          for name, rec in fused.items() if isinstance(rec, dict)],
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

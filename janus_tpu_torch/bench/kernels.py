@@ -189,7 +189,7 @@ F_OPS = {"vdp": (5, 13), "robertson": (7, 18)}
 
 
 def _lu_factor_ops(n):
-    """factor_rows of csrc/radau_fused.cu: a reciprocal per pivot, then a
+    """factor_rows of csrc/radau5_step.cuh: a reciprocal per pivot, then a
     multiply per multiplier and two operations per update."""
     return n + sum(r + 2 * r * r for r in range(n))
 
@@ -198,16 +198,18 @@ def _lu_solve_ops(n):
     return 2 * n * (n - 1) + n
 
 
-def k4_ops(functor, dim):
-    """Operations of K4 (csrc/radau_fused.cu, read line by line) as
+def k4_ops(functor, dim, f_ops=None):
+    """Operations of K4 (csrc/radau5_step.cuh, read line by line) as
     (per attempt, per Newton trip): an attempt with n trips does
     ``attempt + n * trip``. Convention: +, -, *, /, sqrt and pow are one
     operation each; negation, fabs, comparisons, min/max and selects none;
     the warm start, the Newton update and the write-back are counted as if
     taken. The first trip of an attempt skips the 8 operations of the
     convergence-rate tests, which ``attempt`` already subtracts. Also the
-    divides, square roots and pows among them, (per attempt, per trip)."""
-    f, fj = F_OPS[functor]
+    divides, square roots and pows among them, (per attempt, per trip).
+    f_ops: (one f, one Jacobian column) of a generated functor
+    (``rhs_codegen.Unit.f_ops``, the IR's count) in place of F_OPS."""
+    f, fj = f_ops if f_ops is not None else F_OPS[functor]
     d = dim
     attempt = (1 + 3 + d * fj + 2 * d * d                  # h, mu/h, J, fill
                + _lu_factor_ops(d) + _lu_factor_ops(2 * d)  # factors
@@ -225,7 +227,8 @@ def k4_ops(functor, dim):
             "sqrts": (2, 1), "pows": (1, 1)}
 
 
-def k4_work(functor, dim, dtype, m, launches, attempts, trips, n_params):
+def k4_work(functor, dim, dtype, m, launches, attempts, trips, n_params,
+            f_ops=None):
     """(bytes, operations) of K4 over a run: every launch reads and writes
     each lane's packed state once and reads its tf and parameters; the
     operations of ``k4_ops`` for the attempts and Newton trips the run's
@@ -233,7 +236,7 @@ def k4_work(functor, dim, dtype, m, launches, attempts, trips, n_params):
     size = torch.finfo(dtype).bits // 8
     rows = 5 * dim + 15
     nbytes = launches * m * (2 * rows + 1 + n_params) * size
-    k = k4_ops(functor, dim)
+    k = k4_ops(functor, dim, f_ops)
     return nbytes, attempts * k["attempt"] + trips * k["trip"]
 
 
@@ -249,19 +252,22 @@ def warp_efficiency(counts):
 
 def timed_fused_solve(f, t0, tf, y0, args, options):
     """solve_radau_fused's host loop with CUDA events around each call of
-    the K4 wrapper ``ops.radau_fused.radau5_step``: (Solution, K4
-    launches, K4 milliseconds summed over them)."""
-    from janus_tpu_torch.ops.radau_fused import radau5_step
+    the K4 wrapper ``ops.radau_fused.radau5_step`` (f routed, and traced if
+    need be, before the first event): (Solution, K4 launches, K4
+    milliseconds summed over them)."""
+    from janus_tpu_torch.ops.radau_fused import kernel_route, radau5_step
     from janus_tpu_torch.solve import radau_fused as rf
 
-    marks = []
+    marks, route = [], []
 
     def step(st, tf_row, consts):
+        if not route:
+            route.append(kernel_route(f, args, st))
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
         st = radau5_step(st, tf_row, f, args, consts,
-                         max_attempts=rf.MAX_ATTEMPTS)
+                         max_attempts=rf.MAX_ATTEMPTS, route=route[0])
         b.record()
         marks.append((a, b))
         return st
@@ -319,7 +325,8 @@ def k4_ptxas(log):
             sym, entry = m.group(1), None
             if "radau5_step_kernel" in sym:
                 dt = "float64" if "radau5_step_kernelId" in sym else "float32"
-                prob = "robertson" if "Robertson" in sym else "vdp"
+                prob = ("robertson" if "Robertson" in sym else
+                        "generated" if "GeneratedRhs" in sym else "vdp")
                 entry = (sym, f"{prob} {dt}")
                 out[entry[1]] = [None, 0, 0, 0]
             continue

@@ -5,7 +5,10 @@
 // jax.jvp of the inlined f does in the reference kernel
 // (janus_tpu/solve/radau_fused.py:185-199). Scalars of type T (t and the
 // problem's parameters) carry no tangent. The product rule sums
-// a.d*b.v + a.v*b.d, in the order of JAX's mul JVP.
+// a.d*b.v + a.v*b.d, in the order of JAX's mul JVP. These operators serve
+// the hand-written functors of problems.cuh; a functor generated by
+// ops/rhs_codegen.py uses the struct alone, its tangents being the traced
+// program of torch.func.jvp itself (each op's formula as torch writes it).
 
 #pragma once
 

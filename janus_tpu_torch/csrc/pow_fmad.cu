@@ -1,5 +1,5 @@
 // pow in double as PyTorch's CUDA kernels compute it, for K4
-// (radau_fused.cu), which is built without FMA contraction.
+// (radau5_step.cuh), which is built without FMA contraction.
 //
 // libdevice's pow is compiled into the code that calls it, with that code's
 // contraction setting. PyTorch builds its kernels with nvcc's default

@@ -6,13 +6,13 @@ the 2-D method-of-lines grids.
 All RHS are batched: f(t[M], y[M,D], args) -> [M,D]. ``args`` follows the
 reference's conventions: a scalar, an [M] tensor, or a dict of them.
 
-``DEVICE_PROBLEMS`` is the device-problem registry of the fused Radau5 step
-(``solve_ivp(method='radau_fused')`` on a CUDA tensor): it maps a port RHS
-to the CUDA functor of ``csrc/problems.cuh`` that computes the same f on
-the card, with the functor's parameters by name in the functor's order. To
-add a problem, write the torch RHS here, its functor template in
-``problems.cuh`` (registered in ``csrc/radau_fused.cu``'s dispatch), and a
-``DeviceProblem`` entry below.
+``DEVICE_PROBLEMS`` maps the two right-hand sides the fused Radau5 step
+(``solve_ivp(method='radau_fused')`` on a CUDA tensor) runs through a
+hand-written CUDA functor (``csrc/problems.cuh``, dispatched by name in
+``csrc/radau_fused.cu``, its parameters by name in the functor's order).
+Every other f, these library RHS and a user's alike, runs through a
+functor ``ops.rhs_codegen`` generates from its trace (D <= 8); an entry
+here is needed only to keep a hand-written functor.
 """
 
 from __future__ import annotations

@@ -8,8 +8,15 @@ shared library with a plain C interface under ``janus_tpu_torch/_build/``
 (git-ignored), named by a hash of the sources and flags, so an edited
 source rebuilds and an unchanged one loads from the cache. ptxas's report
 (registers, spills, per kernel) is kept beside the library
-(``ptxas_log``). No PyTorch headers are compiled. A missing ``nvcc`` or a failed build raises: there is no
-fallback.
+(``ptxas_log``). No PyTorch headers are compiled. A missing ``nvcc`` or a
+failed build raises: there is no fallback.
+
+``build_unit`` builds one generated K4 translation unit
+(``ops.rhs_codegen``: a functor, ``csrc/radau5_step.cuh`` and its entries)
+into ``_build/libjanus_rhs_<hash>.so`` with K4's flags, linked with
+``pow_fmad.cu`` and ``libm_fmad.cu`` (compiled once into
+``_build/fmad_<hash>/``); the hash (``unit_hash``) covers the generated
+source, the headers it includes, the -fmad=true sources and the flags.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -39,7 +47,13 @@ FMAD_OFF = ["-fmad=false"]
 # PyTorch builds its kernels (the twin's pow; see that file), so both are
 # relocatable device code, joined when the library is linked.
 SOURCE_FLAGS = {"radau_fused.cu": ["-fmad=false", "-rdc=true"],
-                "pow_fmad.cu": ["-fmad=true", "-rdc=true"]}
+                "pow_fmad.cu": ["-fmad=true", "-rdc=true"],
+                "libm_fmad.cu": ["-fmad=true", "-rdc=true"]}
+# a generated unit: K4's flags; the functions PyTorch's kernels compute
+# with contraction come from these two sources (rhs_ops.cuh)
+UNIT_FLAGS = SOURCE_FLAGS["radau_fused.cu"]
+FMAD_SOURCES = ("pow_fmad.cu", "libm_fmad.cu")
+UNIT_HEADERS = ("radau5_step.cuh", "rhs_ops.cuh", "dual.cuh")
 
 _lib = None
 
@@ -135,7 +149,8 @@ def load_library(verbose: bool = False):
         lib.janus_lu_factor_t.restype = i32
         lib.janus_lu_solve_t.argtypes = [vp, vp, vp, i32, i64, i32, vp]
         lib.janus_lu_solve_t.restype = i32
-        lib.janus_linsolve_fused.argtypes = [vp, vp, vp, i32, i64, i32, vp]
+        lib.janus_linsolve_fused.argtypes = [vp, vp, vp, vp, i32, i64, i32,
+                                             vp]
         lib.janus_linsolve_fused.restype = i32
         lib.janus_radau5_step.argtypes = [vp, vp, vp, i64, ctypes.c_char_p,
                                           i32, i32, i32, vp, i32, vp]
@@ -144,3 +159,99 @@ def load_library(verbose: bool = False):
         lib.janus_radau5_attributes.restype = i32
         _lib = lib
     return _lib
+
+
+# ---- generated K4 units ------------------------------------------------------
+
+_fmad_lock = threading.Lock()
+
+
+def unit_hash(source: str) -> str:
+    """The name of a generated unit: a hash of its source, the headers it
+    includes, the -fmad=true sources it links and the flags."""
+    h = hashlib.sha256(source.encode())
+    for name in UNIT_HEADERS + FMAD_SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS + UNIT_FLAGS).encode())
+    h.update(repr([SOURCE_FLAGS[n] for n in FMAD_SOURCES]).encode())
+    return h.hexdigest()[:16]
+
+
+def unit_library_path(name: str) -> Path:
+    return BUILD_DIR / f"libjanus_rhs_{name}.so"
+
+
+def _fmad_objects(nvcc) -> list:
+    """pow_fmad.cu and libm_fmad.cu as relocatable objects for the units,
+    compiled once (cached by their hash)."""
+    h = hashlib.sha256()
+    for name in FMAD_SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+        h.update(" ".join(SOURCE_FLAGS[name]).encode())
+    h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    where = BUILD_DIR / f"fmad_{h.hexdigest()[:16]}"
+    objs = [where / (Path(n).stem + ".o") for n in FMAD_SOURCES]
+    with _fmad_lock:
+        if all(o.exists() for o in objs):
+            return objs
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+        procs = []
+        for name in FMAD_SOURCES:
+            cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, *SOURCE_FLAGS[name], "-c",
+                   "-o", str(tmp / (Path(name).stem + ".o")),
+                   str(CSRC / name)]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        for cmd, proc in procs:
+            log = proc.communicate()[0]
+            if proc.returncode != 0:
+                shutil.rmtree(tmp, ignore_errors=True)
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{log}")
+        try:
+            os.replace(tmp, where)
+        except OSError:                 # another process made it first
+            shutil.rmtree(tmp, ignore_errors=True)
+    return objs
+
+
+def build_unit(name: str, source: str, verbose: bool = False) -> Path:
+    """Compile a generated K4 unit (``ops.rhs_codegen``) into its cached
+    shared library; returns its path. The unit's source and ptxas's report
+    are kept beside it (``.cu``, ``.ptxas.txt``)."""
+    out = unit_library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        src = Path(tmp) / f"rhs_{name}.cu"
+        src.write_text(source)
+        obj = Path(tmp) / f"rhs_{name}.o"
+        cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-Xptxas", "-v", *UNIT_FLAGS,
+               "-I", str(CSRC), "-c", "-o", str(obj), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        fmad = _fmad_objects(nvcc)          # while the unit compiles
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{log}")
+        lib = Path(tmp) / out.name
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-Xcompiler", "-fPIC", "-o",
+               str(lib), str(obj), *map(str, fmad)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+        log += res.stdout + res.stderr
+        if verbose:
+            print(log)
+        out.with_suffix(".ptxas.txt").write_text(log)
+        out.with_suffix(".cu").write_text(source)
+        os.replace(lib, out)
+    return out

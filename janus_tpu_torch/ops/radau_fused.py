@@ -5,37 +5,52 @@ The counterpart of the Pallas kernel inside
 takes the packed SoA state ``[5D+15, M]`` of ``solve.radau_fused._row_layout``
 and runs up to ``max_attempts`` step attempts for every active lane:
 
-- for a CUDA tensor it launches ``janus_radau5_step`` of
-  ``csrc/radau_fused.cu``, which updates the state IN PLACE and returns it.
-  f must be in ``models.problems.DEVICE_PROBLEMS`` (the kernel evaluates f
-  through the named CUDA functor, with the parameters built by name); any
-  other f raises ValueError. A kernel that fails to build or launch raises:
-  the twin never stands in on the card;
+- for a CUDA tensor it launches K4 (``csrc/radau5_step.cuh``), which
+  updates the state IN PLACE and returns it, by one of two routes
+  (``kernel_route``):
+  - f in ``models.problems.DEVICE_PROBLEMS`` (``vdp_rhs``,
+    ``robertson_rhs``): ``janus_radau5_step`` of ``csrc/radau_fused.cu``
+    with the hand-written functor of ``csrc/problems.cuh`` and the
+    parameters built by name (PR 3's route);
+  - any other f: the functor ``ops.rhs_codegen`` generates from the trace
+    of f and its jvp on the state's device, in a unit of its own built at
+    first use (``_build/libjanus_rhs_<hash>.so``), with the args' leaves as
+    parameter rows (``solve.radau_fused.arg_rows``). A solve traces once
+    (``stepper``) and pays that trace in host time: nothing is cached
+    across solves. An f the tracer refuses (an op outside its list, one
+    that mixes lanes, data-dependent control flow, D > 8) raises
+    ValueError naming the op or the limit.
+  A kernel that fails to build or launch raises: the twin never stands in
+  on the card;
 - for a CPU tensor it runs the twin ``solve.radau_fused._step_ref`` (any f)
   and returns a new state.
 
-``radau5_step.launches`` counts kernel launches; ``kernel_attributes``
-reads K4's registers, spills and residency on the card.
+``radau5_step.launches`` counts kernel launches of both routes;
+``kernel_attributes`` reads K4's registers, spills and residency on the
+card for either.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+from typing import Optional
 
 import torch
 
-from janus_tpu_torch.models.problems import DEVICE_PROBLEMS
+from janus_tpu_torch.models.problems import DEVICE_PROBLEMS, DeviceProblem
+from janus_tpu_torch.ops import rhs_codegen
 from janus_tpu_torch.ops.smalllu import (_DTYPE_CODE, _check_cuda, _raise_on,
                                          refuse_derivatives)
 from janus_tpu_torch.solve import common as cm
 from janus_tpu_torch.solve import radau_fused as rf
 
 _D = ctypes.c_double
-THREADS = 128           # threads per block of K4 (csrc/radau_fused.cu kThreads)
+THREADS = 128           # threads per block of K4 (csrc/radau5_step.cuh kThreads)
 
 
 class _Consts(ctypes.Structure):
-    """The C struct JanusRadauConsts of csrc/radau_fused.cu, field for field."""
+    """The C struct JanusRadauConsts of csrc/radau5_step.cuh, field for field."""
 
     _fields_ = [
         ("mu_r", _D), ("mu_cr", _D), ("mu_ci", _D), ("c", _D * 3),
@@ -61,11 +76,6 @@ def _c_consts(k: rf.StepConsts) -> _Consts:
         cm.SUCCESS, cm.MAX_STEPS, cm.STEP_UNDERFLOW, cm.NEWTON_STALL)
 
 
-def _registered():
-    return ", ".join(f"{fn.__module__}.{fn.__name__} ({p.functor})"
-                     for fn, p in DEVICE_PROBLEMS.items())
-
-
 def param_rows(problem, args, like):
     """[NP, M] parameter rows of a registered problem, by name in the
     functor's order; each value a scalar (broadcast) or an [M] tensor."""
@@ -82,10 +92,38 @@ def param_rows(problem, args, like):
     return torch.stack(rows).contiguous()
 
 
+@dataclasses.dataclass
+class Route:
+    """How K4 evaluates f for one (f, args) on the card: the hand-written
+    functor of a registered problem, or a generated unit and its parameter
+    rows [NP, M]."""
+
+    problem: Optional[DeviceProblem] = None
+    unit: Optional[rhs_codegen.Unit] = None
+    rows: Optional[torch.Tensor] = None
+
+
+def kernel_route(f, args, state) -> Route:
+    """The route of K4 for f with args on the packed state (traces f on
+    the state's device when it is not registered)."""
+    dim = (state.shape[0] - 15) // 5
+    problem = DEVICE_PROBLEMS.get(f)
+    if problem is not None:
+        if problem.dim != dim:
+            raise ValueError(f"radau5_step: {problem.functor} has D="
+                             f"{problem.dim}, the state D={dim}")
+        return Route(problem=problem)
+    rows, _ = rf.arg_rows(args, state[0])
+    unit = rhs_codegen.lower(f, args, dim, state.dtype, state.device)
+    return Route(unit=unit, rows=rows.contiguous())
+
+
 def radau5_step(state, tf_row, f, args, consts: rf.StepConsts,
-                max_attempts: int = 1):
+                max_attempts: int = 1, route: Optional[Route] = None):
     """K4: up to max_attempts Radau5 step attempts per active lane on the
-    packed state [5D+15, M] (tf_row [1, M]); see the module docstring."""
+    packed state [5D+15, M] (tf_row [1, M]); see the module docstring.
+    route (``kernel_route(f, args, state)``, made here when None) lets a
+    solve trace f once for all its launches."""
     if state.ndim != 2 or (state.shape[0] - 15) % 5 or state.shape[0] < 20:
         raise ValueError(f"radau5_step: state must be [5D+15, M], got "
                          f"{tuple(state.shape)}")
@@ -101,50 +139,78 @@ def radau5_step(state, tf_row, f, args, consts: rf.StepConsts,
         for _ in range(max_attempts):
             state = rf._step_ref(state, tf_row, rows, f, treedef, consts)
         return state
-    problem = DEVICE_PROBLEMS.get(f)
-    if problem is None:
-        raise ValueError(
-            f"radau5_step: f={getattr(f, '__name__', f)!r} has no CUDA "
-            f"functor; registered problems: {_registered()} "
-            "(models/problems.py:DEVICE_PROBLEMS)")
-    if problem.dim != dim:
-        raise ValueError(f"radau5_step: {problem.functor} has D="
-                         f"{problem.dim}, the state D={dim}")
     refuse_derivatives("radau5_step (K4)", state, tf_row, args)
-    _check_cuda("radau5_step", 1, state, tf_row)
-    params = param_rows(problem, args, state[0])
+    _check_cuda("radau5_step", state, tf_row)
+    if route is None:
+        route = kernel_route(f, args, state)
     if m == 0:
         return state
-    from janus_tpu_torch.ops._build import load_library
-    lib = load_library()
     c = _c_consts(consts)
-    with torch.cuda.device(state.device):
-        rc = lib.janus_radau5_step(
-            state.data_ptr(), tf_row.data_ptr(), params.data_ptr(), m,
-            problem.functor.encode(), dim, len(problem.params),
-            _DTYPE_CODE[state.dtype], ctypes.byref(c), max_attempts,
-            torch.cuda.current_stream().cuda_stream)
+    stream = torch.cuda.current_stream(state.device).cuda_stream
+    if route.unit is not None:
+        unit = route.unit
+        if route.rows.shape != (unit.n_params, m):
+            raise ValueError(f"radau5_step: route rows "
+                             f"{tuple(route.rows.shape)} for {m} lanes")
+        with torch.cuda.device(state.device):
+            rc = getattr(unit.library(), f"janus_radau5_step_{unit.name}")(
+                state.data_ptr(), tf_row.data_ptr(), route.rows.data_ptr(),
+                m, dim, unit.n_params, _DTYPE_CODE[state.dtype],
+                ctypes.byref(c), max_attempts, stream)
+    else:
+        problem = route.problem
+        params = param_rows(problem, args, state[0])
+        from janus_tpu_torch.ops._build import load_library
+        lib = load_library()
+        with torch.cuda.device(state.device):
+            rc = lib.janus_radau5_step(
+                state.data_ptr(), tf_row.data_ptr(), params.data_ptr(), m,
+                problem.functor.encode(), dim, len(problem.params),
+                _DTYPE_CODE[state.dtype], ctypes.byref(c), max_attempts,
+                stream)
     _raise_on(rc, "radau5_step")
     radau5_step.launches += 1
     return state
 
 
-def kernel_attributes(f, dtype) -> dict:
-    """K4's instantiation for f (a registered problem) and dtype on the
-    current card: registers and local (spill) bytes per thread, dynamic
-    shared bytes per block, per-lane values kept in shared memory, resident
-    blocks and warps per SM, SMs, and the lanes resident at once."""
+def stepper(f, args, max_attempts: int):
+    """step(state, tf_row, consts) for a solve loop: K4 launches of up to
+    max_attempts attempts, f routed (and, unregistered, traced) once at the
+    first launch on the card; the twin on the CPU."""
+    route = []
+
+    def step(st, tf_row, consts):
+        if st.device.type != "cpu" and not route:
+            route.append(kernel_route(f, args, st))
+        return radau5_step(st, tf_row, f, args, consts,
+                           max_attempts=max_attempts,
+                           route=route[0] if route else None)
+
+    return step
+
+
+def kernel_attributes(f, dtype, unit: Optional[rhs_codegen.Unit] = None
+                      ) -> dict:
+    """K4's instantiation for f (a registered problem) and dtype, or for a
+    generated unit, on the current card: registers and local (spill) bytes
+    per thread, dynamic shared bytes per block, per-lane values kept in
+    shared memory, resident blocks and warps per SM, SMs, the lanes
+    resident at once, and threads per block."""
     from janus_tpu_torch.ops._build import load_library
     out = (ctypes.c_int * 6)()
-    _raise_on(load_library().janus_radau5_attributes(
-        DEVICE_PROBLEMS[f].functor.encode(), _DTYPE_CODE[dtype], out),
-        "janus_radau5_attributes")
+    if unit is not None:
+        rc = getattr(unit.library(), f"janus_radau5_attributes_{unit.name}")(
+            out)
+    else:
+        rc = load_library().janus_radau5_attributes(
+            DEVICE_PROBLEMS[f].functor.encode(), _DTYPE_CODE[dtype], out)
+    _raise_on(rc, "janus_radau5_attributes")
     regs, local, smem, slots, blocks, sms = out
     warps = blocks * THREADS // 32
     return {"registers": regs, "local_bytes": local, "smem_bytes": smem,
             "smem_values_per_lane": slots, "blocks_per_sm": blocks,
             "warps_per_sm": warps, "sms": sms,
-            "resident_lanes": warps * 32 * sms}
+            "resident_lanes": warps * 32 * sms, "threads_per_block": THREADS}
 
 
 radau5_step.launches = 0

@@ -10,6 +10,10 @@ reference's SoA layout with the trajectory on the last axis: a_t / lu_t
   a CPU tensor they run the twins ``lu_factor_t_ref`` / ``lu_solve_t_ref`` /
   ``linsolve_fused_ref``. Nothing else selects the twin: a kernel that fails
   to build or launch raises.
+- D = 1..16 run kernels instantiated for their D (unrolled, in registers);
+  any larger D runs the kernels' run-time-D form, one lane a thread in
+  place in device memory (K3 on a work copy of A), with the same
+  arithmetic.
 - Each wrapper counts its kernel launches in ``.launches`` (a plain int).
 - The kernels have no derivative rule (the reference's ``pallas_call`` has
   JVP and batching rules; these are raw launches). So a CUDA launch is
@@ -38,7 +42,7 @@ from torch.autograd import forward_ad
 
 from janus_tpu_torch.solve.common import tree_leaves
 
-MAX_D = 16          # the kernels are instantiated for D = 1..16
+MAX_UNROLLED_D = 16   # D = 1..16 unroll in registers; above, D at run time
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 
 
@@ -129,7 +133,7 @@ def refuse_derivatives(name, *trees):
                 "plain route (Options(kernel_lu=False))")
 
 
-def _check_cuda(name, d, *ts):
+def _check_cuda(name, *ts):
     for t in ts:
         if t.device.type != "cuda":
             raise ValueError(f"{name}: tensor on {t.device}, expected CUDA")
@@ -144,9 +148,6 @@ def _check_cuda(name, d, *ts):
         if not t.is_contiguous():
             raise ValueError(f"{name}: input must be contiguous (the SoA "
                              "boundary makes it so)")
-    if d > MAX_D:
-        raise ValueError(f"{name}: D={d} > {MAX_D}, the largest size the "
-                         "kernel is instantiated for")
 
 
 def _raise_on(rc: int, name: str):
@@ -164,7 +165,7 @@ def lu_factor_t(a_t):
     if a_t.device.type == "cpu":
         return lu_factor_t_ref(a_t)
     refuse_derivatives("lu_factor_t (K1)", a_t)
-    _check_cuda("lu_factor_t", d, a_t)
+    _check_cuda("lu_factor_t", a_t)
     out = torch.empty_like(a_t)
     m = a_t.shape[1]
     if m == 0:
@@ -191,7 +192,7 @@ def lu_solve_t(lu_t, b_t):
     if lu_t.device.type == "cpu" and b_t.device.type == "cpu":
         return lu_solve_t_ref(lu_t, b_t)
     refuse_derivatives("lu_solve_t (K2)", lu_t, b_t)
-    _check_cuda("lu_solve_t", d, lu_t, b_t)
+    _check_cuda("lu_solve_t", lu_t, b_t)
     out = torch.empty_like(b_t)
     m = b_t.shape[1]
     if m == 0:
@@ -220,16 +221,19 @@ def linsolve_fused(a_t, b_t):
     if a_t.device.type == "cpu" and b_t.device.type == "cpu":
         return linsolve_fused_ref(a_t, b_t)
     refuse_derivatives("linsolve_fused (K3)", a_t, b_t)
-    _check_cuda("linsolve_fused", d, a_t, b_t)
+    _check_cuda("linsolve_fused", a_t, b_t)
     out = torch.empty_like(b_t)
     m = b_t.shape[1]
     if m == 0:
         return out
+    # the run-time-D kernel eliminates a copy of A in place
+    work = torch.empty_like(a_t) if d > MAX_UNROLLED_D else None
     from janus_tpu_torch.ops._build import load_library
     lib = load_library()
     with torch.cuda.device(b_t.device):
         rc = lib.janus_linsolve_fused(
-            a_t.data_ptr(), b_t.data_ptr(), out.data_ptr(), d, m,
+            a_t.data_ptr(), b_t.data_ptr(), out.data_ptr(),
+            None if work is None else work.data_ptr(), d, m,
             _DTYPE_CODE[b_t.dtype], torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "linsolve_fused")
     linsolve_fused.launches += 1

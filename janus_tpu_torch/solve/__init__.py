@@ -127,7 +127,9 @@ def solve_ivp(f: Callable, tspan, y0, method: str = "dopri5", args: Any = None,
     tangents=; 'seulex' (extrapolated linearly implicit Euler, with mass=,
     t_eval=, events=, dense=, quad=, step_args= and, in terminal mode,
     tangents=); 'radau_fused' (Radau5 with the whole step attempt in one
-    CUDA kernel; on the card f must be in models.problems.DEVICE_PROBLEMS);
+    CUDA kernel; on the card f runs through a hand-written functor
+    (models.problems.DEVICE_PROBLEMS) or one ops.rhs_codegen generates
+    from its trace, D <= 8);
     and the legacy steppers 'bdf2' (variable-step BDF2) and 'grk4t'
     (aliases 'ros4', 'rosenbrock': Kaps-Rentrop GRK4T), with jac= and
     t_eval= only. A name the reference does not know raises ValueError.

@@ -34,7 +34,8 @@ linearization point, preconditioned by a structure probed from J with a few
 colored jvp's (``Options(precond='tridiag'|'lines'|'block')``);
 ``'tridiag'`` skips GMRES and solves the structure directly (a modified
 Newton). This is the path for method-of-lines systems (D in the hundreds),
-which the unrolled dense LU and the kernels (D ≤ 16) do not reach. It runs no
+where the dense LU's D³ per lane (unrolled in the kernels up to D = 16, one
+lane a thread in device memory above) does not pay. It runs no
 hand-written kernel, as it runs no Pallas kernel in the reference.
 """
 

@@ -8,12 +8,17 @@ D×D and split-complex 2D×2D factors, the simplified Newton of at most
 ``NEWTON_MAXITER`` trips, the error estimate and the refined estimate, the
 Gustafsson controller, status and counters -- updates those rows.
 
-- On a CUDA tensor the attempt runs in the kernel K4 (``csrc/radau_fused.cu``
-  through ``janus_tpu_torch.ops.radau_fused.radau5_step``), one thread per
-  lane, for f registered in ``models.problems.DEVICE_PROBLEMS``; any other f
-  raises. A launch runs up to ``MAX_ATTEMPTS`` attempts per lane (an
-  inactive lane is a fixed point of the attempt), and the host loop repeats
-  while any lane is active.
+- On a CUDA tensor the attempt runs in the kernel K4
+  (``csrc/radau5_step.cuh`` through
+  ``janus_tpu_torch.ops.radau_fused.radau5_step``), one thread per lane.
+  f reaches the kernel as a C++ functor: the hand-written one of
+  ``csrc/problems.cuh`` for ``vdp_rhs`` and ``robertson_rhs``
+  (``models.problems.DEVICE_PROBLEMS``), or, for any other f up to D = 8
+  made of the ops ``ops.rhs_codegen`` lowers, one generated from the trace
+  of f and its jvp (traced once a solve, built at first use); any other f
+  raises ValueError naming the op or the limit. A launch runs up to
+  ``MAX_ATTEMPTS`` attempts per lane (an inactive lane is a fixed point of
+  the attempt), and the host loop repeats while any lane is active.
 - ``_step_ref`` is the plain torch version of one attempt for any f; on a
   CPU tensor the op runs it, and the CPU tests hold it against the
   reference's kernel in interpret mode.
@@ -505,18 +510,16 @@ def solve_radau_fused(f: Callable, t0, tf, y0, args=None,
 
     f(t [M], y [M, D], args) -> [M, D]; y0 [M, D]. A torch y0 solves on its
     own device; any other y0 goes to ``device``, by default the CUDA card
-    (with no card, pass a CPU tensor or device='cpu'). On the card f must
-    be in ``models.problems.DEVICE_PROBLEMS``. The host syncs of the last solve are in
-    ``solve_radau_fused.host_syncs``.
+    (with no card, pass a CPU tensor or device='cpu'). On the card f runs
+    through K4's hand-written functor (``models.problems.DEVICE_PROBLEMS``)
+    or a functor generated from its trace (``ops.rhs_codegen``: D <= 8, the
+    ops listed there); any other f raises ValueError. The host syncs of the
+    last solve are in ``solve_radau_fused.host_syncs``.
     """
-    from janus_tpu_torch.ops.radau_fused import radau5_step
+    from janus_tpu_torch.ops.radau_fused import stepper
 
-    def step(st, tf_row, consts):
-        return radau5_step(st, tf_row, f, args, consts,
-                           max_attempts=MAX_ATTEMPTS)
-
-    sol, solve_radau_fused.host_syncs = _solve(f, t0, tf, y0, args, options,
-                                               step, device)
+    sol, solve_radau_fused.host_syncs = _solve(
+        f, t0, tf, y0, args, options, stepper(f, args, MAX_ATTEMPTS), device)
     return sol
 
 

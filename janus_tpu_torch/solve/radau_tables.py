@@ -1,7 +1,7 @@
 """Radau IIA tableaux derived numerically for any stage count s ∈ {1,3,5,7}.
 
 The port's own copy of ``janus_tpu/solve/radau_tables.py`` (numpy only):
-importing the reference module would import jax through
+importing the reference module would load jax through
 ``janus_tpu/__init__.py``. Nodes come from the right-Radau polynomial, A from
 the collocation conditions, the real/complex eigen-structure of A⁻¹ for the
 transformed Newton systems, the embedded-error weights E from quadrature

@@ -114,8 +114,29 @@ Gauss–Newton step) at 8,192 lanes through K1/K2 equal to the plain
 pivot-free LU to the bit (events: y, status, event_t, event_y; the fit:
 μ̂, the residual and every IND sweep's y and sens), K1 and K2 launched;
 ``reverse_time.main`` on the card (the round trip within 1e-7).
+
+K1-K3 beyond D = 16 (their run-time-D kernels): D = 17, 24 and 32, M =
+4,096, f32 and f64, equal to their twins to the bit.
+
+K4 through functors generated from a traced f (``ops.rhs_codegen``), on
+``bench.fused_any``'s cases at D = 2, 3, 4, 6 and 8 (brusselator,
+orego, ham_vdp, dubins_pmp, hires) in f64 and f32, at the lanes their
+solves run (4,096; 65,536 at D = 6 and 8): a launch of 1 and of 32
+attempts from the initial state equal to as many ``_step_ref`` attempts to
+the bit; the functor's f and Jacobian columns
+(``Unit.eval_on_card``) equal to f and torch.func.jvp on the card to the
+bit, and the test rhs of ``tests/test_torch_rhs_codegen.py`` (where,
+maximum, minimum, clamp, exp, log, sqrt, abs, pow by -1, -2, 0.5, 1.5,
+-0.5, a division by a number and one by a row) likewise, on 2^20 lanes;
+a lambda around vdp_rhs and robertson_rhs equal to the hand-written
+functor to the bit (solve and K4 rounds); an f that closes over tensors
+on the card (a [D] row, a 0-dim tensor) and a 0-dim CPU tensor solved by
+generated K4 equal to the twin loop to the bit; an f with an op the
+tracer refuses raises ValueError naming it on a CUDA tensor without
+running the twin.
 """
 
+import dataclasses
 import os
 import sys
 
@@ -286,10 +307,13 @@ def test_cuda_y0_with_device_cuda_solves(method, device):
 
 @pytest.mark.gpu
 def test_k4_refuses_unregistered_f_on_card():
+    """An f that is not registered and that the tracer refuses (an op
+    outside its list) raises on the card, naming the op."""
     dev = _card()
     _, args, state, tf_row, consts = k4_setup("vdp", 64, torch.float64, dev)
-    with pytest.raises(ValueError, match="registered problems"):
-        k4.radau5_step(state, tf_row, lambda t, y, a: vdp_rhs(t, y, a),
+    with pytest.raises(ValueError, match="aten.cumsum"):
+        k4.radau5_step(state, tf_row,
+                       lambda t, y, a: torch.cumsum(vdp_rhs(t, y, a), -1),
                        args, consts)
 
 
@@ -731,3 +755,167 @@ def test_reverse_time_round_trip_on_card():
     _card()
     err, err8 = reverse_time.main()
     assert err < 1e-7 and err8 < 1e-7
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d", [17, 24, 32])
+def test_kernels_beyond_16_equal_twins_to_the_bit(d, dtype):
+    dev = _card()
+    m = 4096
+    rng = np.random.default_rng(d)
+    a = rng.standard_normal((m, d, d)) + 5.0 * np.eye(d)
+    b = rng.standard_normal((m, d))
+    a_t = torch.from_numpy(np.ascontiguousarray(
+        a.transpose(1, 2, 0).reshape(d * d, m))).to(dev, dtype)
+    b_t = torch.from_numpy(np.ascontiguousarray(b.T)).to(dev, dtype)
+    lu_ref = smalllu.lu_factor_t_ref(a_t)
+    for got, ref in ((smalllu.lu_factor_t(a_t), lu_ref),
+                     (smalllu.lu_solve_t(lu_ref, b_t),
+                      smalllu.lu_solve_t_ref(lu_ref, b_t)),
+                     (smalllu.linsolve_fused(a_t, b_t),
+                      smalllu.linsolve_fused_ref(a_t, b_t))):
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
+
+
+_GENERATED = {2: "brusselator", 3: "orego", 4: "ham_vdp", 6: "dubins_pmp",
+              8: "hires"}
+
+
+def _generated_case(d, dtype):
+    from janus_tpu_torch.bench import fused_any
+    name = _GENERATED[d]
+    case = fused_any.CASES[name]
+    return fused_any, name, dataclasses.replace(case, dtype=dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d", sorted(_GENERATED))
+def test_generated_k4_equals_twin_to_the_bit(d, dtype, monkeypatch):
+    """1 and 32 attempts of K4 through the generated functor from the
+    initial state of all the case's lanes (65,536 at D = 6 and 8): equal to
+    _step_ref (fused_any.rounds raises otherwise)."""
+    dev = _card()
+    fused_any, name, case = _generated_case(d, dtype)
+    monkeypatch.setitem(fused_any.CASES, name, case)
+    n = k4.radau5_step.launches
+    out = fused_any.rounds(name, dev, case.m)
+    assert [r["attempts"] for r in out] == [1, 32]
+    assert all(r["state"].shape[1] == case.m for r in out)
+    assert k4.radau5_step.launches == n + 2
+
+
+def _rhs_inputs(unit, m, dev, dtype, seed):
+    rng = np.random.default_rng(seed)
+    t = torch.from_numpy(rng.random(m)).to(dev, dtype)
+    y = torch.from_numpy(0.2 + rng.random((unit.dim, m))).to(dev, dtype)
+    rows = torch.from_numpy(0.5 + rng.random((unit.n_params, m))).to(
+        dev, dtype)
+    return t, y, rows
+
+
+def _functor_equals_f_on_card(f, args, dim, dtype, m=1 << 20):
+    from torch.func import jvp
+    from janus_tpu_torch.ops import rhs_codegen
+    dev = _card()
+    unit = rhs_codegen.lower(f, args, dim, dtype, dev)
+    t, y_t, rows = _rhs_inputs(unit, m, dev, dtype, dim)
+    f_k, jac_k = unit.eval_on_card(t, y_t, rows)
+    leaves, treedef = rf.arg_rows(args, y_t[0])
+    a1 = None if treedef is None else treedef(list(rows))
+    y = y_t.T.contiguous()
+    want = f(t, y, a1)
+    torch.cuda.synchronize()
+    assert torch.equal(f_k, want.T.contiguous()), float(
+        (f_k - want.T).abs().max())
+    for j in range(dim):
+        tang = torch.zeros_like(y)
+        tang[:, j] = 1.0
+        _, col = jvp(lambda yy: f(t, yy, a1), (y,), (tang,))
+        got = jac_k.reshape(dim, dim, m)[:, j]
+        assert torch.equal(got, col.T.contiguous()), (j, float(
+            (got - col.T).abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", ["dubins_pmp", "hires", "ham_vdp", "orego",
+                                  "e5", "brusselator", "mixed_ops_rhs"])
+def test_generated_functor_equals_f_and_jvp_on_card(name, dtype):
+    from janus_tpu_torch.bench import fused_any
+    if name == "mixed_ops_rhs":
+        sys.path.insert(0, os.path.dirname(__file__))
+        from torch_rhs_cases import mixed_ops_rhs
+        f, args, dim = mixed_ops_rhs, {"k": 2.0}, 3
+    else:
+        f, args = fused_any.case_f(name)
+        dim = fused_any.CASES[name].dim
+    _functor_equals_f_on_card(f, args, dim, dtype)
+
+
+@pytest.mark.gpu
+def test_lambdas_equal_hand_written_functors_on_card():
+    """The generated route of a lambda around vdp_rhs / robertson_rhs
+    equals the hand-written functor to the bit (fused_any.run_case raises
+    otherwise), each through its own K4 launches."""
+    from janus_tpu_torch.bench import fused_any
+    dev = _card()
+    started = {"units": fused_any.lower_units(
+        ["vdp_lambda", "robertson_lambda"], dev), "scipy": {},
+        "widths": {"vdp_lambda": 4096, "robertson_lambda": 4096}}
+    for name in ("vdp_lambda", "robertson_lambda"):
+        rec = fused_any.run_case(name, dev, started, smoke=True)
+        assert rec["hand_written_equal"] and rec["launches"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_closure_tensors_on_card_run_generated_k4(dtype):
+    """f closes over a [D] row and a 0-dim tensor on the card and a 0-dim
+    CPU tensor: traced on the card, solved by generated K4 equal to the
+    twin loop to the bit."""
+    from janus_tpu_torch.bench.fused_any import same_solution
+    dev = _card()
+    w = torch.tensor([1.0, 2.0, 3.0], dtype=dtype, device=dev)
+    s_card = torch.tensor(7.0, dtype=dtype, device=dev)
+    s_cpu = torch.tensor(3.0, dtype=dtype)
+
+    def f(t, y, a):
+        return (-(w * y) / s_card - y / s_cpu
+                + a[:, None] * torch.cos(t)[:, None])
+
+    rng = np.random.default_rng(5)
+    m = 4096
+    y0 = torch.from_numpy(rng.random((m, 3))).to(dev, dtype)
+    args = torch.from_numpy(rng.random(m)).to(dev, dtype)
+    opts = Options(rtol=1e-4 if dtype == torch.float32 else 1e-6,
+                   atol=1e-7 if dtype == torch.float32 else 1e-9)
+    n = k4.radau5_step.launches
+    sol = solve_ivp(f, (0.0, 2.0), y0, method="radau_fused", args=args,
+                    options=opts)
+    assert k4.radau5_step.launches > n
+    ref = rf.solve_radau_fused_ref(f, 0.0, 2.0, y0, args, opts)
+    assert same_solution(sol, ref)
+    assert bool((sol.status == 1).all())
+
+
+@pytest.mark.gpu
+def test_refused_op_raises_on_card_without_the_twin(monkeypatch):
+    dev = _card()
+    _, args, state, tf_row, consts = k4_setup("vdp", 64, torch.float64, dev)
+
+    def no_twin(*a, **k):
+        raise AssertionError("the twin ran on the card")
+
+    monkeypatch.setattr(rf, "_step_ref", no_twin)
+    n = k4.radau5_step.launches
+    with pytest.raises(ValueError, match="aten.cumsum"):
+        k4.radau5_step(state, tf_row,
+                       lambda t, y, a: torch.cumsum(vdp_rhs(t, y, a), -1),
+                       args, consts)
+    with pytest.raises(ValueError, match="D=9 > 8"):
+        k4.kernel_route(lambda t, y, a: -y, None,
+                        state.new_zeros((5 * 9 + 15, 64)))
+    assert k4.radau5_step.launches == n

@@ -195,21 +195,24 @@ def test_k4_wrapper_takes_twin_only_on_cpu():
     assert (share, abs_err) == (1.0, 0.0) and set(errs) == {
         "t", "y0", "y1", "f00", "f01", "h", "h_old", "err_old", "q0", "q1",
         "q2", "q3", "q4", "q5", "h_prev"}
-    # off the CPU the wrapper launches the kernel or raises: an f with no
-    # CUDA functor raises, naming the registered problems ...
+    # off the CPU the wrapper launches the kernel or raises: an f that the
+    # generated route would take raises on a device with no kernel ...
     meta = (state.to("meta"), tf_row.to("meta"))
-    with pytest.raises(ValueError, match="registered problems: .*vdp_rhs"):
+    with pytest.raises(ValueError, match="expected CUDA"):
         k4.radau5_step(*meta, lambda t, y, a: vdp_rhs(t, y, a), mus, consts)
-    # ... and a registered f on a device with no kernel raises too
+    # ... and a registered f too; an f with an op outside the generated
+    # route's list is refused by its route, naming the op
     with pytest.raises(ValueError, match="expected CUDA"):
         k4.radau5_step(*meta, vdp_rhs, mus.to("meta"), consts)
+    with pytest.raises(ValueError, match="aten.cumsum"):
+        k4.kernel_route(lambda t, y, a: torch.cumsum(y, -1), mus, state)
     with pytest.raises(ValueError, match="5D\\+15"):
         k4.radau5_step(state[:-1], tf_row, vdp_rhs, mus, consts)
 
 
 def test_consts_struct_matches_cuda_source():
     """The ctypes Structure lists the C struct's fields in its order."""
-    src = (CSRC / "radau_fused.cu").read_text()
+    src = (CSRC / "radau5_step.cuh").read_text()
     body = re.search(r"struct JanusRadauConsts \{(.*?)\};", src, re.S).group(1)
     decls = [d.split(None, 1)[1] for d in re.sub(r"//[^\n]*", "", body)
              .split(";") if d.strip()]          # "double c[3]" -> "c[3]"
@@ -225,7 +228,7 @@ def test_consts_struct_types_and_size_match_cuda_source():
     """Every field of JanusRadauConsts, with its C type and array length, is
     the ctypes field of the same position, and the two structs have one
     size: a field added on one side only fails here."""
-    src = (CSRC / "radau_fused.cu").read_text()
+    src = (CSRC / "radau5_step.cuh").read_text()
     body = re.search(r"struct JanusRadauConsts \{(.*?)\};", src, re.S).group(1)
     fields = []
     for decl in re.sub(r"//[^\n]*", "", body).split(";"):

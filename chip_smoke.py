@@ -20,7 +20,8 @@ Phases, one line each (everything is made from fixed seeds):
    PyTorch call that computes the same function (torch.linalg.lu_factor
    with pivot=False, lu_solve), at D=4, M=65,536 f64; then D = 24 (the
    run-time-D kernels above 16), M=65,536 f64: K1 and K2 equal to their
-   twins to the bit, each time beside its twin's and its bound;
+   twins to the bit, each time beside its twin's, the library call's and
+   its bound;
 4. headline f64: bench.py's configuration through the port -- 65,536 stiff
    Van der Pol lanes (mu = 1e3, t in [0, 1]), Radau IIA s=5, rtol 1e-6,
    atol 1e-9, pivot-free stage LU through K1/K2, analytic Jacobian, K = 2
@@ -68,7 +69,7 @@ Phases, one line each (everything is made from fixed seeds):
 13. the matrix-free Radau path (janus_tpu_torch.bench.mol, where each phase
     is described; run with smoke=True: one timed run a cell (each adjoint
     cell timed by its checked calls), no profile, GMRES(25) over a
-    thirty-second of the span, the block line over a sixteenth of its span,
+    thirty-second of the span, the block line over a thirty-second of its span,
     the IND solves over a sixty-fourth of the line's): Thomas against PCR on the card (D=128, M = 1,024 and
     65,536, real and complex; agreement to 1e-10 relative, both times);
     bench.py's method-of-lines configuration at full width -- the D=128
@@ -262,10 +263,15 @@ Phases, one line each (everything is made from fixed seeds):
     Hamiltonian VdP (mu in a closure), orego, e5, brusselator, lambdas
     around vdp_rhs and robertson_rhs at 4,096 lanes, and orego in f32:
     every lane SUCCESS (f32 >= 0.99), K4 launched; 1 and 32 attempts of K4
-    on 4,096 lanes equal to _step_ref to the bit; the lambdas equal to the
+    on every lane the solve runs equal to _step_ref to the bit, and at D = 6
+    and 8 (at D = 8 the group layout, a lane over 8 threads, the factors
+    in shared memory; at D = 6 in f32 the lane layout) also through the
+    f32 units; the lambdas equal to the
     hand-written functors to the bit; 8 lanes against scipy's Radau; K4's
-    ms a solve beside its bound, the unit's registers, spills, threads a
-    block, blocks a SM and cold build seconds.
+    ms a solve beside its bound, the unit's layout (threads a lane, lanes a
+    block, blocks a SM, registers, spills, local bytes) and cold build
+    seconds; then K4's ms a solve of dubins_pmp and HIRES beside
+    nvidia-smi's name and power limit of the card.
 
 Then one JSON line with the kernels' records, nvidia-smi's line, and last
 {"ok": true, "device": {...}}. Any failed check raises; no phase's failure
@@ -444,14 +450,18 @@ def main():
                   f"(max|err| {float((got - ref).abs().max()):.3e})")
         bms, by = bench.bound_ms(*bench.lu_work(name, d_big, M,
                                                 torch.float64), torch.float64)
+        lib = bench.library_call(name, a_t, b_t, lu_ref)
+        lib()                       # the library's first-call setup, untimed
         big[name] = {"D": d_big, "ms": bench.events_ms(lambda: kern(*ins), 5),
                      "plain_ms": bench.events_ms(lambda: twin(*ins), 1),
-                     "bound_ms": bms, "bound_by": by}
+                     "bound_ms": bms, "bound_by": by,
+                     "library_ms": bench.events_ms(lib, 5)}
+        del lib
     print(f"[kernels D={d_big}] M={M} float64, run-time-D kernels, equal to "
           "their twins to the bit: " + ", ".join(
-              f"{n} {r['ms']:.4f} ms (twin {r['plain_ms']:.1f}, bound "
-              f"{r['bound_ms']:.4f} by {r['bound_by']})"
-              for n, r in big.items()), flush=True)
+              f"{n} {r['ms']:.4f} ms (twin {r['plain_ms']:.1f}, library "
+              f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+              f"{r['bound_by']})" for n, r in big.items()), flush=True)
     del a, b, a_t, b_t, lu_ref, x_ref
 
     # ---- 4. headline, f64 --------------------------------------------------
@@ -905,6 +915,12 @@ def main():
     # ---- 25. K4 for any right-hand side up to D = 8 -----------------------
     t25 = time.perf_counter()
     fused = fused_any_probe.run(dev, smoke=True, started=fused_started)
+    print("[K4 group layout] K4 ms a solve, f64, 65,536 lanes: " + ", ".join(
+        f"{name} {fused[name]['k4']['ms']:.3f} ms ("
+        f"{fused[name]['build']['threads_per_lane']} threads a lane, "
+        f"{fused[name]['build']['registers']} registers, "
+        f"{fused[name]['build']['local_bytes']} B local)"
+        for name in ("dubins_pmp", "hires")) + f" | {smi}", flush=True)
     print(f"[phase 25] {time.perf_counter() - t25:.1f} s", flush=True)
     print(f"[total] {time.perf_counter() - t_start:.1f} s, the build "
           "included", flush=True)

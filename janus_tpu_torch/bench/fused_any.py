@@ -43,15 +43,16 @@ For each case:
   ``floor`` (f64; f32 1e-2 |ref| + ``floor``);
 - the lambda cases: the solve and the K4 rounds equal to the hand-written
   functor's to the bit, and both K4 times;
-- K4's device ms a solve (CUDA events around each K4 call, median of 3)
-  and the attempts, beside its bound (``bench.kernels.k4_work`` with the
+- K4's device ms a solve (CUDA events around each K4 call, median of 3;
+  one with ``smoke``) and the attempts, beside its bound (``bench.kernels.k4_work`` with the
   generated program's op counts for f and a Jacobian column); the unit's
   registers and spills (ptxas), threads a block, blocks a SM, and the cold
   build seconds (``start`` builds every unit in threads of its own, one
   nvcc each, so that the builds overlap whatever runs meanwhile).
 
 ``smoke`` skips the twin loops of whole solves (minutes of host at D = 8:
-~0.2 s of host an attempt on the card, 221 attempts for HIRES).
+~0.2 s of host an attempt on the card, 221 attempts for HIRES) and times
+one solve a case, not three.
 """
 
 from __future__ import annotations
@@ -180,19 +181,30 @@ def _to(x, dev, dtype):
     return x
 
 
-def case_inputs(name, dev, m=None, width=None):
+def case_inputs(name, dev, m=None, width=None, dtype=None):
     """(f, args, tf, y0, Options) on dev for the first m lanes of the case
-    at width lanes (default: the case's)."""
+    at width lanes (default: the case's), in dtype (default: the
+    case's)."""
     from janus_tpu_torch.solve import Options
     c = CASES[name]
+    dtype = c.dtype if dtype is None else dtype
     width = c.m if width is None else width
     y0, tf, args = case_numpy(name, width)
     m = width if m is None else m
     sub = (lambda x: x[:m] if isinstance(x, np.ndarray) else x)
     f = case_f(name)[0]
     args = sub(args) if not isinstance(args, dict) else args
-    return (f, _to(args, dev, c.dtype), _to(sub(tf), dev, c.dtype),
-            _to(y0[:m], dev, c.dtype), Options(rtol=c.rtol, atol=c.atol))
+    return (f, _to(args, dev, dtype), _to(sub(tf), dev, dtype),
+            _to(y0[:m], dev, dtype), Options(rtol=c.rtol, atol=c.atol))
+
+
+def f32_twin(name):
+    """Whether the case also runs its K4 rounds in float32: the f64 cases
+    of the group layout, whose f32 unit is another layout (D = 6: the
+    lane layout) or another register budget (D = 8)."""
+    from janus_tpu_torch.ops.radau_fused import GROUP_MIN_DIM
+    c = CASES[name]
+    return c.dtype is torch.float64 and c.dim >= GROUP_MIN_DIM[c.dtype]
 
 
 # ---- scipy, in a worker -----------------------------------------------------
@@ -227,12 +239,17 @@ def scipy_lanes(name, width):
 # ---- building ---------------------------------------------------------------
 
 def lower_units(names, dev):
-    """{name: the case's generated unit} (traced on dev, not built)."""
+    """{name: the case's generated unit} (traced on dev, not built), and
+    {name + " float32": its f32 unit} where ``f32_twin``."""
     from janus_tpu_torch.ops import rhs_codegen
     units = {}
     for name in names:
-        f, args, _, y0, _ = case_inputs(name, dev, 8)
-        units[name] = rhs_codegen.lower(f, args, y0.shape[1], y0.dtype, dev)
+        for key, dtype in ((name, None), (f"{name} float32", torch.float32)):
+            if dtype is not None and not f32_twin(name):
+                continue
+            f, args, _, y0, _ = case_inputs(name, dev, 8, dtype=dtype)
+            units[key] = rhs_codegen.lower(f, args, y0.shape[1], y0.dtype,
+                                           dev)
     return units
 
 
@@ -287,16 +304,18 @@ def same_solution(a, b):
             and all(torch.equal(a.stats[k], b.stats[k]) for k in a.stats))
 
 
-def rounds(name, dev, width, f=None, twin=True):
+def rounds(name, dev, width, f=None, twin=True, dtype=None):
     """K4 at max_attempts 1 and 32 from the initial state of all width
-    lanes against the twin on the same card (twin=False: K4 alone): a
-    record per launch, {attempts, max_abs_err, state, ms (K4), plain_ms
-    (the twin's as many attempts), work: attempts and Newton trips summed
-    over lanes, bound_ms, bound_by (on a card)}."""
+    lanes against the twin on the same card (twin=False: K4 alone), in
+    dtype (default: the case's): a record per launch, {attempts,
+    max_abs_err, state, ms (K4), plain_ms (the twin's as many attempts),
+    work: attempts and Newton trips summed over lanes, bound_ms, bound_by
+    (on a card)}."""
     from janus_tpu_torch.bench import kernels as kb
     from janus_tpu_torch.ops import radau_fused as k4
     from janus_tpu_torch.solve import radau_fused as rf
-    f0, args, tf, y0, opts = case_inputs(name, dev, width=width)
+    f0, args, tf, y0, opts = case_inputs(name, dev, width=width,
+                                         dtype=dtype)
     f = f0 if f is None else f
     st0, tf_row = rf.initial_state(f, 0.0, tf, y0, args, opts)
     consts = rf.step_consts(opts, y0.dtype)
@@ -365,13 +384,13 @@ class _Clock:
             self.ms = (time.perf_counter() - self.t0) * 1e3
 
 
-def k4_device(name, dev, f, args, tf, y0, opts, sol, unit):
-    """K4's ms a solve (CUDA events around each call, median of 3 solves,
-    each tracing f anew), its launches, and its bound by unit's op counts
-    (unit: f's generated unit; None for a hand-written functor)."""
+def k4_device(name, dev, f, args, tf, y0, opts, sol, unit, reps=3):
+    """K4's ms a solve (CUDA events around each call, median of reps
+    solves, each tracing f anew), its launches, and its bound by unit's op
+    counts (unit: f's generated unit; None for a hand-written functor)."""
     from janus_tpu_torch.bench import kernels as kb
     runs = [kb.timed_fused_solve(f, 0.0, tf, y0, args, opts)
-            for _ in range(3)]
+            for _ in range(reps)]
     if not all(same_solution(r[0], sol) for r in runs):
         _fail(f"{name}: a timed solve differs from solve_ivp's")
     ms = statistics.median(r[2] for r in runs)
@@ -391,8 +410,10 @@ def k4_device(name, dev, f, args, tf, y0, opts, sol, unit):
 
 
 def build_facts(unit, dtype):
-    """Registers, spills (ptxas), threads a block, blocks a SM of the
-    unit's K4 instantiation on the current card."""
+    """The layout of the unit's K4 instantiation on the current card:
+    registers and spills (ptxas), local bytes, threads a lane, lanes a
+    block, threads a block, blocks a SM, shared bytes a block, lanes
+    resident at once; and its cold build seconds."""
     from janus_tpu_torch.bench.kernels import k4_ptxas
     from janus_tpu_torch.ops import radau_fused as k4
     a = k4.kernel_attributes(None, dtype, unit=unit)
@@ -400,10 +421,9 @@ def build_facts(unit, dtype):
         f"generated {str(dtype)[6:]}"]
     return {"registers": regs, "stack_bytes": stack, "spill_stores": spill_st,
             "spill_loads": spill_ld, "local_bytes": a["local_bytes"],
-            "threads_per_block": a["threads_per_block"],
-            "blocks_per_sm": a["blocks_per_sm"],
-            "smem_bytes": a["smem_bytes"],
-            "resident_lanes": a["resident_lanes"],
+            **{key: a[key] for key in (
+                "threads_per_lane", "lanes_per_block", "threads_per_block",
+                "blocks_per_sm", "smem_bytes", "resident_lanes")},
             "build_s": unit.build_seconds}
 
 
@@ -483,9 +503,20 @@ def run_case(name, dev, started, smoke):
         rec["hand_written_equal"] = True
         if on_card:
             rec["k4_hand_written"] = k4_device(name, dev, hand, args, tf, y0,
-                                               opts, sol_h, None)
+                                               opts, sol_h, None,
+                                               1 if smoke else 3)
+    if f32_twin(name):
+        rd32 = rounds(name, dev, width, dtype=torch.float32)
+        rec["f32"] = {"rounds_equal": [r["attempts"] for r in rd32],
+                      "max_abs_err": max(r["max_abs_err"] for r in rd32),
+                      "round32": {k: v for k, v in rd32[1].items()
+                                  if k != "state"}}
+        if on_card:
+            rec["f32"]["build"] = build_facts(
+                started["units"][f"{name} float32"], torch.float32)
     if on_card:
-        rec["k4"] = k4_device(name, dev, f, args, tf, y0, opts, sol, unit)
+        rec["k4"] = k4_device(name, dev, f, args, tf, y0, opts, sol, unit,
+                              1 if smoke else 3)
         rec["build"] = build_facts(unit, c.dtype)
     later = started["scipy"].get(name)
     if later is not None:
@@ -524,15 +555,32 @@ def _line(name, rec):
         parts.append(f"hand-written K4 {rec['k4_hand_written']['ms']:.5f} ms")
     if "build" in rec:
         b = rec["build"]
-        parts.append(f"{b['registers']} registers, spill stores/loads "
+        parts.append(f"{b['threads_per_lane']} thread(s) a lane, "
+                     f"{b['lanes_per_block']} lanes a block "
+                     f"({b['threads_per_block']} threads), "
+                     f"{b['blocks_per_sm']} blocks a SM, "
+                     f"{b['resident_lanes']} lanes resident, "
+                     f"{b['registers']} registers, spill stores/loads "
                      f"{b['spill_stores']}/{b['spill_loads']} B, "
-                     f"{b['local_bytes']} B local, {b['threads_per_block']} "
-                     f"threads a block, {b['blocks_per_sm']} blocks a SM, "
-                     f"{b['smem_bytes']} B shared a block, cold build "
-                     f"{b['build_s']:.1f} s")
+                     f"{b['local_bytes']} B local, {b['smem_bytes']} B "
+                     f"shared a block, cold build {b['build_s']:.1f} s")
     if "scipy_worst" in rec:
         parts.append(f"{SCIPY_LANES} lanes vs scipy Radau: worst error / "
                      f"bound {rec['scipy_worst']:.3e}")
+    if "f32" in rec:
+        r32 = rec["f32"]["round32"]
+        parts.append(f"float32: K4 = _step_ref to the bit at max_attempts "
+                     f"{rec['f32']['rounds_equal']} on all {rec['m']} lanes "
+                     f"(32 attempts: K4 {r32['ms']:.3f} ms, twin "
+                     f"{r32['plain_ms']:.1f} ms)")
+        b = rec["f32"].get("build")
+        if b is not None:
+            parts.append(f"float32 unit: {b['threads_per_lane']} threads a "
+                         f"lane, {b['lanes_per_block']} lanes a block, "
+                         f"{b['blocks_per_sm']} blocks a SM, "
+                         f"{b['registers']} registers, spill stores/loads "
+                         f"{b['spill_stores']}/{b['spill_loads']} B, "
+                         f"{b['local_bytes']} B local")
     return " | ".join(parts)
 
 
@@ -551,16 +599,24 @@ def kernel_record(name, rec):
             "library_ms": None, "solve_ms": k["ms"],
             "solve_bound_ms": k["bound_ms"], "solve_bound_by": k["bound_by"],
             "trace_s": rec["trace_s"],
-            "registers": rec["build"]["registers"],
-            "spill_stores": rec["build"]["spill_stores"],
-            "threads_per_block": rec["build"]["threads_per_block"],
-            "blocks_per_sm": rec["build"]["blocks_per_sm"],
-            "build_s": rec["build"]["build_s"],
+            **{key: rec["build"][key] for key in (
+                "registers", "spill_stores", "local_bytes",
+                "threads_per_lane", "lanes_per_block", "threads_per_block",
+                "blocks_per_sm", "smem_bytes", "build_s")},
+            **({"float32": {
+                "ms": rec["f32"]["round32"]["ms"],
+                "plain_ms": rec["f32"]["round32"]["plain_ms"],
+                "max_abs_err": rec["f32"]["max_abs_err"],
+                **{key: rec["f32"]["build"][key] for key in (
+                    "registers", "spill_stores", "local_bytes",
+                    "threads_per_lane", "lanes_per_block", "blocks_per_sm",
+                    "smem_bytes")}}} if "f32" in rec else {}),
             "shape": f"D={rec['dim']} M={rec['m']} {rec['dtype']}; ms, "
                      "plain_ms, bound_ms: one K4 launch of 32 attempts from "
                      "the initial state of all M lanes and the 32 _step_ref "
                      "attempts it equals to the bit; solve_ms: every K4 "
-                     "launch of one solve, launches: that solve's"}
+                     "launch of one solve, launches: that solve's; float32: "
+                     "the same 32 attempts by the f32 unit"}
 
 
 def run(dev, names=None, smoke=False, started=None, width=None):

@@ -13,13 +13,16 @@ machine with a CUDA card and nvcc:
 It prints, one line each:
 - K1-K3 against the PyTorch call that computes the same function
   (``torch.linalg.lu_factor(pivot=False)``, ``lu_solve``, and the pivoted
-  ``torch.linalg.solve``), D in {2, 4, 8} (8: the split-complex blocks of
-  a D = 4 system), M = 65,536, f64 and f32: wall time by CUDA events and
-  device time by torch.profiler of each, and the bound;
+  ``torch.linalg.solve``), D in {2, 4, 8, 24} (8: the split-complex
+  blocks of a D = 4 system; 24: the run-time-D kernels above 16), M =
+  65,536, f64 and f32: wall time by CUDA events and device time by
+  torch.profiler of each, and the bound;
 - pow(x, e) built with and without FMA contraction against PyTorch's, on
   2^25 inputs at K4's exponents (csrc/pow_fmad.cu);
 - K4 in whole fused solves (VdP mu = 1e3 headline, 65,536 and 4 x 65,536
-  lanes, heterogeneous mu, Robertson, f32): the run's counters, the warp
+  lanes, heterogeneous mu, Robertson, f32; and through generated functors
+  ``bench.fused_any``'s dubins_pmp, D = 6, and HIRES, D = 8, at 65,536
+  lanes in f64, f traced anew every solve): the run's counters, the warp
   efficiency, the bound, and K4's time per solve, kernels alone by
   torch.profiler and by CUDA events around the wrapper calls. With
   ``--parent DIR`` the K4 of the checkout at DIR is timed the same way,
@@ -137,15 +140,15 @@ def lu_inputs(rng, d, m, dtype, dev):
 
 
 def lu_table(dev, reps=50):
-    """K1-K3 and their library calls at D in {2, 4, 8}, M = 65,536,
+    """K1-K3 and their library calls at D in {2, 4, 8, 24}, M = 65,536,
     f64/f32 (D = 8: the size of the split-complex blocks of a D = 4
-    system)."""
+    system; 24: the run-time-D kernels above 16)."""
     import numpy as np
     from janus_tpu_torch.ops import smalllu
     rng = np.random.default_rng(0)
     rows = []
     for dtype in (torch.float64, torch.float32):
-        for d in (2, 4, 8):
+        for d in (2, 4, 8, 24):
             a_t, b_t = lu_inputs(rng, d, M, dtype, dev)
             lu_t = smalllu.lu_factor_t(a_t)
             kern = {"lu_factor_t": lambda: smalllu.lu_factor_t(a_t),
@@ -304,6 +307,10 @@ def k4_cells(dev):
     y0, mus = vdp(M, torch.float32)
     cells["f32"] = (vdp_rhs, 0.0, 1.0, y0, mus,
                     Options(rtol=1e-4, atol=1e-7))
+    from janus_tpu_torch.bench import fused_any
+    for name in ("dubins_pmp", "hires"):
+        f, args, tf, y0, o = fused_any.case_inputs(name, dev)
+        cells[name] = (f, 0.0, tf, y0, args, o)
     return cells
 
 
@@ -316,15 +323,19 @@ _REGS = re.compile(r"Used (\d+) registers")
 
 def k4_ptxas(log):
     """{instantiation: (registers, stack frame bytes, spill store bytes,
-    spill load bytes)} of radau5_step_kernel in a ptxas -v report (the
-    lines of the kernel's own entry; a called function has its own)."""
+    spill load bytes)} of radau5_step_kernel (or, at D = 5..8 of a
+    generated unit, radau5_group_kernel) in a ptxas -v report (the lines of
+    the kernel's own entry; a called function has its own)."""
     out, entry, props = {}, None, None
     for line in log.splitlines():
         m = _ENTRY.search(line)
         if m:
             sym, entry = m.group(1), None
-            if "radau5_step_kernel" in sym:
-                dt = "float64" if "radau5_step_kernelId" in sym else "float32"
+            kern = next((k for k in ("radau5_step_kernel",
+                                     "radau5_group_kernel") if k in sym),
+                        None)
+            if kern is not None:
+                dt = "float64" if f"{kern}Id" in sym else "float32"
                 prob = ("robertson" if "Robertson" in sym else
                         "generated" if "GeneratedRhs" in sym else "vdp")
                 entry = (sym, f"{prob} {dt}")
@@ -353,6 +364,7 @@ def k4_times(dev, reps=3):
     (torch.profiler, the kernels alone, mean of reps) and K4 ms per solve by
     CUDA events around the wrapper calls (median of reps)}."""
     from janus_tpu_torch.models.problems import DEVICE_PROBLEMS
+    from janus_tpu_torch.ops import rhs_codegen
     from janus_tpu_torch.solve import solve_ivp
 
     report = {}
@@ -363,13 +375,20 @@ def k4_times(dev, reps=3):
             for _ in range(reps))
         kernel = device_ms(lambda: solve_ivp(
             f, (t0, tf), y0, method="radau_fused", args=args,
-            options=opts), reps, "radau5_step_kernel")
+            options=opts), reps, "radau5_")
         m, dim = y0.shape
-        problem = DEVICE_PROBLEMS[f]
+        problem = DEVICE_PROBLEMS.get(f)
         attempts = int(ref.stats["nsteps"].sum())
         trips = int(ref.stats["nnewton"].sum())
-        nbytes, ops = k4_work(problem.functor, dim, y0.dtype, m, launches,
-                              attempts, trips, len(problem.params))
+        if problem is not None:
+            nbytes, ops = k4_work(problem.functor, dim, y0.dtype, m,
+                                  launches, attempts, trips,
+                                  len(problem.params))
+        else:                       # a generated functor: its op counts
+            unit = rhs_codegen.lower(f, args, dim, y0.dtype, dev)
+            nbytes, ops = k4_work("generated", dim, y0.dtype, m, launches,
+                                  attempts, trips, unit.n_params,
+                                  unit.f_ops())
         bms, by = bound_ms(nbytes, ops, y0.dtype)
         c = report[cell] = {
             "m": m, "launches": launches, "attempts": attempts,

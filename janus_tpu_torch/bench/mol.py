@@ -763,7 +763,7 @@ def run(dev, only=PHASES, smoke=False):
         report["heat"] = timed("heat", heat_phase)
     if "block" in only:
         report["block"] = timed("block", block_phase,
-                                tf=0.03125 if smoke else 0.5)
+                                tf=0.015625 if smoke else 0.5)
     if "ind" in only:
         report["ind"] = timed("ind", ind_phase,
                               tf=TF_LINE / (64 if smoke else 4))

@@ -27,7 +27,11 @@ and runs up to ``max_attempts`` step attempts for every active lane:
 
 ``radau5_step.launches`` counts kernel launches of both routes;
 ``kernel_attributes`` reads K4's registers, spills and residency on the
-card for either.
+card for either. ``geometry`` chooses a generated unit's layout by (D,
+dtype): the lane layout, one lane a thread, where the factors fit shared
+memory (D <= 4; 5, 6 in float), and above it the group layout, a lane
+over a group of threads with the factors in shared memory (D = 5..8 in
+double, 7..8 in float).
 """
 
 from __future__ import annotations
@@ -47,6 +51,76 @@ from janus_tpu_torch.solve import radau_fused as rf
 
 _D = ctypes.c_double
 THREADS = 128           # threads per block of K4 (csrc/radau5_step.cuh kThreads)
+# D from which a lane spreads over a group of threads: where the lane
+# layout's factors no longer fit a block's share of shared memory (csrc Layout, whose
+# static_assert refuses the other way round)
+GROUP_MIN_DIM = {torch.float64: 5, torch.float32: 7}
+GROUP_THREADS = 8       # threads a lane in the group layout
+# blocks a SM the group layout asks registers for (__launch_bounds__): the
+# fastest of 2-6 on a 32-attempt launch at D = 5..8 on the H100
+# (bench.k4_layout, PERF.md)
+GROUP_BLOCKS = {torch.float64: 4, torch.float32: 6}
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """K4's launch geometry for one (D, dtype), from ``geometry``.
+
+    threads_per_lane: threads that work one lane together (a group, in one
+    warp); lanes_per_block: lanes a block; blocks_per_sm: blocks a SM the
+    kernel asks registers for (None: the lane layout, whose
+    ``min_blocks`` is the kernel's own); scratch_per_lane: values of the
+    dtype a lane exchanges through shared memory; smem_bytes: the group
+    layout's dynamic shared memory a block, the factors (5 D values a
+    thread) and the scratch (0 for the lane layout, whose per-lane arrays
+    in shared memory its ``Layout`` sizes)."""
+
+    threads_per_lane: int
+    lanes_per_block: int
+    blocks_per_sm: Optional[int]
+    scratch_per_lane: int
+    smem_bytes: int
+
+    @property
+    def threads_per_block(self) -> int:
+        return self.threads_per_lane * self.lanes_per_block
+
+    def blocks(self, m: int) -> int:
+        """Blocks of a launch on m lanes."""
+        return -(-m // self.lanes_per_block)
+
+    def lane_of(self, block, thread):
+        """(lane, thread within its group) of a thread of a block, as the
+        kernel computes them (numbers or numpy arrays)."""
+        return (block * self.lanes_per_block + thread // self.threads_per_lane,
+                thread % self.threads_per_lane)
+
+
+def geometry(dim: int, dtype) -> Geometry:
+    """The layout K4 takes for a generated functor at D = dim in dtype,
+    chosen at build time (the unit is generated with it; the wrapper passes
+    it to the launch, which refuses any other):
+
+    - D <= 4, and D = 5, 6 in float: the lane layout, one lane a thread,
+      128 lanes a block, the factors in shared memory (where they fit; at D = 5, 6
+      in float the group layout measured 3-5x slower, PERF.md);
+    - D = 5..8 in double, 7..8 in float: the group layout, a lane over a
+      group of 8 threads, 16 lanes a block of 128.
+      Thread i < D of a group holds row i of the real factor and rows i and
+      i + D of the split-complex one (5 D values; every thread of the block
+      has their room) in shared memory, and component i of every per-lane
+      vector in registers; each lane exchanges max(D^2, 6D) values (the
+      Jacobian's columns, the stages) through shared memory, padded to 8
+      modulo 32 so that the four groups of a warp fall on disjoint banks."""
+    if dim < GROUP_MIN_DIM[dtype]:
+        return Geometry(1, THREADS, None, 0, 0)
+    need = max(dim * dim, 6 * dim)
+    scratch = need + (8 - need) % 32
+    lanes = THREADS // GROUP_THREADS
+    itemsize = torch.finfo(dtype).bits // 8
+    factors = 5 * dim * THREADS
+    return Geometry(GROUP_THREADS, lanes, GROUP_BLOCKS[dtype], scratch,
+                    (factors + lanes * scratch) * itemsize)
 
 
 class _Consts(ctypes.Structure):
@@ -152,11 +226,13 @@ def radau5_step(state, tf_row, f, args, consts: rf.StepConsts,
         if route.rows.shape != (unit.n_params, m):
             raise ValueError(f"radau5_step: route rows "
                              f"{tuple(route.rows.shape)} for {m} lanes")
+        geo = geometry(dim, state.dtype)
         with torch.cuda.device(state.device):
             rc = getattr(unit.library(), f"janus_radau5_step_{unit.name}")(
                 state.data_ptr(), tf_row.data_ptr(), route.rows.data_ptr(),
                 m, dim, unit.n_params, _DTYPE_CODE[state.dtype],
-                ctypes.byref(c), max_attempts, stream)
+                ctypes.byref(c), max_attempts, geo.threads_per_lane,
+                geo.lanes_per_block, geo.smem_bytes, stream)
     else:
         problem = route.problem
         params = param_rows(problem, args, state[0])
@@ -194,10 +270,10 @@ def kernel_attributes(f, dtype, unit: Optional[rhs_codegen.Unit] = None
     """K4's instantiation for f (a registered problem) and dtype, or for a
     generated unit, on the current card: registers and local (spill) bytes
     per thread, dynamic shared bytes per block, per-lane values kept in
-    shared memory, resident blocks and warps per SM, SMs, the lanes
-    resident at once, and threads per block."""
+    shared memory, resident blocks and warps per SM, SMs, threads a lane,
+    lanes a block, threads a block, and the lanes resident at once."""
     from janus_tpu_torch.ops._build import load_library
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * 8)()
     if unit is not None:
         rc = getattr(unit.library(), f"janus_radau5_attributes_{unit.name}")(
             out)
@@ -205,12 +281,13 @@ def kernel_attributes(f, dtype, unit: Optional[rhs_codegen.Unit] = None
         rc = load_library().janus_radau5_attributes(
             DEVICE_PROBLEMS[f].functor.encode(), _DTYPE_CODE[dtype], out)
     _raise_on(rc, "janus_radau5_attributes")
-    regs, local, smem, slots, blocks, sms = out
-    warps = blocks * THREADS // 32
+    regs, local, smem, slots, blocks, sms, per_lane, lanes = out
     return {"registers": regs, "local_bytes": local, "smem_bytes": smem,
             "smem_values_per_lane": slots, "blocks_per_sm": blocks,
-            "warps_per_sm": warps, "sms": sms,
-            "resident_lanes": warps * 32 * sms, "threads_per_block": THREADS}
+            "warps_per_sm": blocks * per_lane * lanes // 32, "sms": sms,
+            "threads_per_lane": per_lane, "lanes_per_block": lanes,
+            "threads_per_block": per_lane * lanes,
+            "resident_lanes": blocks * lanes * sms}
 
 
 radau5_step.launches = 0

@@ -963,24 +963,28 @@ struct GeneratedRhs {{
 
 }}  // namespace
 
+{geometry}
 extern "C" {{
 
 // K4 on the packed state [5D+15, M] with this functor (radau_fused.cu's
-// janus_radau5_step without the problem name).
+// janus_radau5_step without the problem name), given the launch geometry
+// (ops/radau_fused.py:geometry; any other is refused).
 int janus_radau5_step_{name}(void* state, const void* tf_row,
                              const void* params, int64_t m, int d,
                              int n_params, int dtype,
                              const JanusRadauConsts* consts,
-                             int max_attempts, void* stream) {{
+                             int max_attempts, int threads_per_lane,
+                             int lanes_per_block, int64_t smem_bytes,
+                             void* stream) {{
   if (d != GeneratedRhs::D || n_params != GeneratedRhs::NP || dtype != {code})
     return (int)cudaErrorInvalidValue;
-  return (int)launch_t<{ct}, GeneratedRhs>(
-      state, tf_row, params, m, *consts, max_attempts,
-      static_cast<cudaStream_t>(stream));
+  return (int){launch}(
+      state, tf_row, params, m, *consts, max_attempts, threads_per_lane,
+      lanes_per_block, smem_bytes, static_cast<cudaStream_t>(stream));
 }}
 
 int janus_radau5_attributes_{name}(int* out) {{
-  return attributes_t<{ct}, GeneratedRhs>(out);
+  return {attributes}(out);
 }}
 
 // f [D, M] and the Jacobian [D*D, M] at t [M], y [D, M], params [NP, M].
@@ -994,13 +998,34 @@ int janus_rhs_eval_{name}(const void* t, const void* y, const void* params,
 """
 
 
+def geometry_decl(geo) -> str:
+    """The line of a unit that compiles the group layout's geometry in."""
+    return (f"using Geo = GroupGeometry<{geo.threads_per_lane}, "
+            f"{geo.lanes_per_block}, {geo.blocks_per_sm}, "
+            f"{geo.scratch_per_lane}>;\n")
+
+
 def emit_source(fname, value: Program, dual: Program, n_params, dtype):
-    """The translation unit, with ``@NAME@`` where the hash goes."""
+    """The translation unit, with ``@NAME@`` where the hash goes; K4's
+    layout is ``ops.radau_fused.geometry``'s for (D, dtype)."""
+    from janus_tpu_torch.ops.radau_fused import geometry
     from janus_tpu_torch.ops.smalllu import _DTYPE_CODE
+    ct = _C_TYPE[dtype]
+    geo = geometry(value.dim, dtype)
+    if geo.threads_per_lane > 1:
+        geo_line = ("// K4's group layout (ops/radau_fused.py:geometry)\n"
+                    + geometry_decl(geo))
+        launch = f"launch_group<{ct}, GeneratedRhs, Geo>"
+        attributes = f"group_attributes<{ct}, GeneratedRhs, Geo>"
+    else:
+        geo_line = ""
+        launch = f"launch_lanes<{ct}, GeneratedRhs>"
+        attributes = f"attributes_t<{ct}, GeneratedRhs>"
     # the comment names f without an address; a lambda is "<lambda>"
     return _UNIT.format(
         fname=fname.replace("\n", " "), dim=value.dim, np=n_params,
-        ct=_C_TYPE[dtype], code=_DTYPE_CODE[dtype], name=_NAME,
+        ct=ct, code=_DTYPE_CODE[dtype], name=_NAME, geometry=geo_line,
+        launch=launch, attributes=attributes,
         value="\n".join(_emit_program(value, " " * 6)),
         dual="\n".join(_emit_program(dual, " " * 6)))
 
@@ -1046,7 +1071,8 @@ class Unit:
             lib = ctypes.CDLL(str(_build.build_unit(self.name, self.source)))
             vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
             step = getattr(lib, f"janus_radau5_step_{self.name}")
-            step.argtypes = [vp, vp, vp, i64, i32, i32, i32, vp, i32, vp]
+            step.argtypes = [vp, vp, vp, i64, i32, i32, i32, vp, i32, i32,
+                             i32, i64, vp]
             step.restype = i32
             attrs = getattr(lib, f"janus_radau5_attributes_{self.name}")
             attrs.argtypes = [vp]

@@ -121,9 +121,15 @@ K1-K3 beyond D = 16 (their run-time-D kernels): D = 17, 24 and 32, M =
 K4 through functors generated from a traced f (``ops.rhs_codegen``), on
 ``bench.fused_any``'s cases at D = 2, 3, 4, 6 and 8 (brusselator,
 orego, ham_vdp, dubins_pmp, hires) in f64 and f32, at the lanes their
-solves run (4,096; 65,536 at D = 6 and 8): a launch of 1 and of 32
-attempts from the initial state equal to as many ``_step_ref`` attempts to
-the bit; the functor's f and Jacobian columns
+solves run (4,096; 65,536 at D = 6 and 8, and at D = 6 and 8 also the
+ragged 700, 4,099 and 65,535 lanes, past a block's and a group's edge): a
+launch of 1 and of 32 attempts from the initial state equal to as many
+``_step_ref`` attempts to the bit; K4's layout at D = 5..8
+(``ops.radau_fused.geometry``: threads a lane, lanes a block, the group
+layout's scratch and blocks a SM) in the built unit's attributes, its
+local bytes below the local-memory layout's readings and its registers
+ptxas's, with D = 5 and 7 (``torch_rhs_cases.ring_rhs``) also equal to
+``_step_ref`` on 4,099 lanes; the functor's f and Jacobian columns
 (``Unit.eval_on_card``) equal to f and torch.func.jvp on the card to the
 bit, and the test rhs of ``tests/test_torch_rhs_codegen.py`` (where,
 maximum, minimum, clamp, exp, log, sqrt, abs, pow by -1, -2, 0.5, 1.5,
@@ -790,21 +796,93 @@ def _generated_case(d, dtype):
     return fused_any, name, dataclasses.replace(case, dtype=dtype)
 
 
+# the group layout's ragged widths: past a block's edge, past a group's in
+# a warp, and one lane short of a full last block (16 lanes a block)
+_RAGGED = [700, 4099, 65535]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("d", sorted(_GENERATED))
-def test_generated_k4_equals_twin_to_the_bit(d, dtype, monkeypatch):
+@pytest.mark.parametrize("d,m", [(d, None) for d in sorted(_GENERATED)]
+                         + [(d, m) for d in (6, 8) for m in _RAGGED])
+def test_generated_k4_equals_twin_to_the_bit(d, m, dtype, monkeypatch):
     """1 and 32 attempts of K4 through the generated functor from the
-    initial state of all the case's lanes (65,536 at D = 6 and 8): equal to
-    _step_ref (fused_any.rounds raises otherwise)."""
+    initial state of all the case's lanes (65,536 at D = 6 and 8; at D = 6
+    and 8 also the ragged widths m): equal to _step_ref (fused_any.rounds
+    raises otherwise)."""
     dev = _card()
     fused_any, name, case = _generated_case(d, dtype)
     monkeypatch.setitem(fused_any.CASES, name, case)
+    width = case.m if m is None else m
     n = k4.radau5_step.launches
-    out = fused_any.rounds(name, dev, case.m)
+    out = fused_any.rounds(name, dev, width)
     assert [r["attempts"] for r in out] == [1, 32]
-    assert all(r["state"].shape[1] == case.m for r in out)
+    assert all(r["state"].shape[1] == width for r in out)
     assert k4.radau5_step.launches == n + 2
+
+
+# local bytes a thread of the layout that held the factors in local memory
+# (f64, H100), which the group layout replaced
+_LOCAL_LAYOUT_BYTES = {6: 2288, 8: 3688}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d", [5, 6, 7, 8])
+def test_generated_k4_layout_on_card(d, dtype):
+    """K4's layout at D = 5..8 (the group layout; the lane layout at D =
+    5, 6 in float): the unit's attributes are what ops.radau_fused.geometry
+    says, its local bytes a thread are below the local-memory layout's
+    readings at D = 6 and 8 (the factors' 5 D^2 f64 values at D = 5 and 7);
+    in the group layout the block's shared memory holds the factors, 5 D
+    values a thread, and the local bytes stay below a lane's factor bytes
+    in the dtype; the runtime's register count is ptxas's;
+    at D = 5 and 7, which no fused_any case has, K4 equals _step_ref after
+    1 and 32 attempts on 4,099 lanes."""
+    from janus_tpu_torch.bench.kernels import k4_ptxas
+    from janus_tpu_torch.ops import rhs_codegen
+    dev = _card()
+    sys.path.insert(0, os.path.dirname(__file__))
+    from torch_rhs_cases import ring_rhs
+    if d in _GENERATED:
+        fused_any, name, case = _generated_case(d, dtype)
+        f, args = fused_any.case_f(name)
+    else:
+        f, args = ring_rhs, None
+    unit = rhs_codegen.lower(f, args, d, dtype, dev)
+    geo = k4.geometry(d, dtype)
+    a = k4.kernel_attributes(None, dtype, unit=unit)
+    assert (a["threads_per_lane"], a["lanes_per_block"]) == (
+        geo.threads_per_lane, geo.lanes_per_block), a
+    assert a["local_bytes"] < _LOCAL_LAYOUT_BYTES.get(d, 5 * d * d * 8), a
+    if geo.threads_per_lane > 1:
+        itemsize = torch.finfo(dtype).bits // 8
+        assert (a["smem_bytes"], a["smem_values_per_lane"]) == (
+            geo.smem_bytes, geo.scratch_per_lane), a
+        assert geo.smem_bytes >= 5 * d * geo.threads_per_block * itemsize
+        assert a["blocks_per_sm"] >= geo.blocks_per_sm, a
+        assert a["local_bytes"] < 5 * d * d * itemsize, a
+    regs = k4_ptxas(unit.ptxas_log())[f"generated {str(dtype)[6:]}"][0]
+    assert regs == a["registers"], (regs, a)
+    if d in _GENERATED:
+        return
+    m = 4099
+    rng = np.random.default_rng(d)
+    y0 = torch.from_numpy(0.5 + rng.random((m, d))).to(dev, dtype)
+    opts = Options(rtol=1e-4 if dtype == torch.float32 else 1e-6,
+                   atol=1e-7 if dtype == torch.float32 else 1e-9)
+    state, tf_row = rf.initial_state(f, 0.0, 1.0, y0, args, opts)
+    consts = rf.step_consts(opts, dtype)
+    rows, treedef = rf.arg_rows(args, state[0])
+    route = k4.kernel_route(f, args, state)
+    for n in (1, 32):
+        ref = state
+        for _ in range(n):
+            ref = rf._step_ref(ref, tf_row, rows, f, treedef, consts)
+        got = k4.radau5_step(state.clone(), tf_row, f, args, consts,
+                             max_attempts=n, route=route)
+        torch.cuda.synchronize()
+        _assert_bit_equal(got, ref)
 
 
 def _rhs_inputs(unit, m, dev, dtype, seed):

@@ -18,3 +18,13 @@ def mixed_ops_rhs(t, y, a):
     c = (torch.clamp(x2, -0.5, 2.0) + 1.0 / x0 + x1 / a["k"] + x2 / 3.0
          + t * torch.reciprocal(x1))
     return torch.stack([s + e, w * p, c], dim=-1)
+
+
+def ring_rhs(t, y, a):
+    """Any D (y's last axis), no args: component i decays at rate
+    1 + 50 i, is driven by its two ring neighbours' product and by
+    0.1 sin(t); for K4's group layout at the D no library problem has."""
+    d = y.shape[-1]
+    return torch.stack([-(1.0 + 50.0 * i) * y[..., i]
+                        + 0.5 * y[..., (i + 1) % d] * y[..., (i - 1) % d]
+                        + 0.1 * torch.sin(t) for i in range(d)], dim=-1)

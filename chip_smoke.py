@@ -18,8 +18,9 @@ Phases, one line each (everything is made from fixed seeds):
    each kernel's time next to its twin's (CUDA events), next to its bound
    (the bytes it must move over the card's memory rate) and next to the
    PyTorch call that computes the same function (torch.linalg.lu_factor
-   with pivot=False, lu_solve), at D=4, M=65,536 f64; then D = 24 (the
-   run-time-D kernels above 16), M=65,536 f64: K1 and K2 equal to their
+   with pivot=False, lu_solve), at D=4, M=65,536 f64; then D = 17, 28 and
+   56 (K1's tile kernel, K2's run-time-D kernel; 28 and 56 the Pleiades
+   blocks of phase 26), M=65,536, f64 and f32: K1 and K2 equal to their
    twins to the bit, each time beside its twin's, the library call's and
    its bound;
 4. headline f64: bench.py's configuration through the port -- 65,536 stiff
@@ -36,8 +37,10 @@ Phases, one line each (everything is made from fixed seeds):
 6. headline f32 with compensated accumulation: finite, success >= 0.99;
 7. K3 (linsolve_fused) against its twin, shapes and tolerances as phase 3,
    its time at D=4, M=65,536 f64 next to the twin's, its bound and the
-   pivoted torch.linalg.solve; then the public op
-   janus_tpu_torch.ops.linsolve_fused once, counting its launches;
+   pivoted torch.linalg.solve; at D = 17, 28 and 56 (the tile kernel) in
+   f64 and f32 equal to its twin to the bit, with the same times; then the
+   public op janus_tpu_torch.ops.linsolve_fused once, counting its
+   launches;
 8. K4 (radau5_step): its registers and local bytes per instantiation
    (cudaFuncGetAttributes) and ptxas's spill bytes (the build's report),
    the shared memory it keeps per lane, resident
@@ -69,8 +72,9 @@ Phases, one line each (everything is made from fixed seeds):
 13. the matrix-free Radau path (janus_tpu_torch.bench.mol, where each phase
     is described; run with smoke=True: one timed run a cell (each adjoint
     cell timed by its checked calls), no profile, GMRES(25) over a
-    thirty-second of the span, the block line over a thirty-second of its span,
-    the IND solves over a sixty-fourth of the line's): Thomas against PCR on the card (D=128, M = 1,024 and
+    sixty-fourth of the span, the block line over a hundred-and-twenty-
+    eighth of its span, the IND solves over a hundred-and-twenty-eighth of
+    the line's): Thomas against PCR on the card (D=128, M = 1,024 and
     65,536, real and complex; agreement to 1e-10 relative, both times);
     bench.py's method-of-lines configuration at full width -- the D=128
     Fisher-KPP line, stage_solver='tridiag', rtol 1e-4 -- at M = 1,024 in
@@ -234,8 +238,8 @@ Phases, one line each (everything is made from fixed seeds):
     residuals; event_time_training's first 3 steps; neural_ode_dopri's
     first 5 Adam steps (the loss falls); newton_cg_hvp's value-and-gradient
     and one H.v through K1/K2 (``launches_newton_cg``) and the plain LU,
-    equal to the bit; one Levenberg-Marquardt iteration of vdp_min_time on
-    four lanes. Each of these but reverse_time, bratu_psitc and
+    equal to the bit; vdp_min_time's first residual and its exact Jacobian
+    on four lanes. Each of these but reverse_time, bratu_psitc and
     neural_ode_dopri is also held to the port's own CPU result on the same
     inputs, at the CPU tests' tolerances (1e-9 absolute, 1e-8 relative for
     event_time_training and newton_cg_hvp), computed in worker processes
@@ -272,6 +276,17 @@ Phases, one line each (everything is made from fixed seeds):
     block, blocks a SM, registers, spills, local bytes) and cold build
     seconds; then K4's ms a solve of dubins_pmp and HIRES beside
     nvidia-smi's name and power limit of the card.
+26. K1 and K2 above 16 on a solver's path (janus_tpu_torch.bench.lu_tile,
+    its shortest check): Radau5 on Pleiades (D = 28; Hairer's initial
+    value, each lane's velocities scaled in [0.99, 1.01] from a seed) at
+    65,536 lanes in f64 over t in [0, 0.5] (the probe's whole span is
+    [0, 3]), rtol 1e-6, atol 1e-8, through kernel_lu=True (K1's tile
+    kernel factors the 28 x 28 and 56 x 56 blocks, K2 solves them;
+    ``launches_pleiades`` by D in the kernels line) and the plain
+    pivot-free LU: every lane SUCCESS on both, y within rtol 1e-5 of the
+    plain route's, 8 lanes against scipy's DOP853 at rtol 1e-10 (within
+    1e-7 relative + 1e-8), s a solve of each route and the ms inside K1
+    and K2.
 
 Then one JSON line with the kernels' records, nvidia-smi's line, and last
 {"ok": true, "device": {...}}. Any failed check raises; no phase's failure
@@ -326,6 +341,7 @@ def main():
     from janus_tpu_torch.bench import infra as infra_probe
     from janus_tpu_torch.bench import kernels as bench
     from janus_tpu_torch.bench import lockstep as lockstep_probe
+    from janus_tpu_torch.bench import lu_tile as lu_tile_probe
     from janus_tpu_torch.bench import mol
     from janus_tpu_torch.bench import ndf as ndf_probe
     from janus_tpu_torch.bench import rodas as rodas_probe
@@ -428,41 +444,68 @@ def main():
                           f"{extra['lu_solve_t'][2]:.4f})", flush=True)
     print(f"[kernels] agree with twins: max|err| K1 {err['K1']}, "
           f"K2 {err['K2']}", flush=True)
-    # above D = 16: the run-time-D kernels, to the bit
-    d_big = 24
-    a = rng.standard_normal((M, d_big, d_big)) + 5.0 * np.eye(d_big)
-    b = rng.standard_normal((M, d_big))
-    a_t = torch.from_numpy(np.ascontiguousarray(
-        a.transpose(1, 2, 0).reshape(d_big * d_big, M))).to(dev)
-    b_t = torch.from_numpy(np.ascontiguousarray(b.T)).to(dev)
-    lu_ref = smalllu.lu_factor_t_ref(a_t)
-    x_ref = smalllu.lu_solve_t_ref(lu_ref, b_t)
-    big = {}
-    for name, kern, twin, ref, ins in (
-            ("lu_factor_t", smalllu.lu_factor_t, smalllu.lu_factor_t_ref,
-             lu_ref, (a_t,)),
-            ("lu_solve_t", smalllu.lu_solve_t, smalllu.lu_solve_t_ref,
-             x_ref, (lu_ref, b_t))):
-        got = kern(*ins)
-        torch.cuda.synchronize()
-        if not torch.equal(got, ref):
-            _fail(f"{name} D={d_big}: not equal to its twin to the bit "
-                  f"(max|err| {float((got - ref).abs().max()):.3e})")
-        bms, by = bench.bound_ms(*bench.lu_work(name, d_big, M,
-                                                torch.float64), torch.float64)
-        lib = bench.library_call(name, a_t, b_t, lu_ref)
-        lib()                       # the library's first-call setup, untimed
-        big[name] = {"D": d_big, "ms": bench.events_ms(lambda: kern(*ins), 5),
-                     "plain_ms": bench.events_ms(lambda: twin(*ins), 1),
-                     "bound_ms": bms, "bound_by": by,
-                     "library_ms": bench.events_ms(lib, 5)}
-        del lib
-    print(f"[kernels D={d_big}] M={M} float64, run-time-D kernels, equal to "
-          "their twins to the bit: " + ", ".join(
-              f"{n} {r['ms']:.4f} ms (twin {r['plain_ms']:.1f}, library "
-              f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by "
-              f"{r['bound_by']})" for n, r in big.items()), flush=True)
-    del a, b, a_t, b_t, lu_ref, x_ref
+    # above the unrolled sizes: K1's tile kernel and K2's run-time-D kernel
+    # at D = 17 and the Pleiades blocks 28 and 56 (phase 26), to the bit
+    tile = {"lu_factor_t": [], "lu_solve_t": [], "linsolve_fused": []}
+
+    def tile_inputs(d, dtype):
+        """SoA a_t (+max(5, 2 sqrt(d))·I: pivot-free elimination stays
+        well conditioned at these D) and b_t, M = 65,536, drawn on the card
+        from a seed by D (on the host, 0.2-1.6 GB a case took tens of
+        seconds beside phase 25's builds)."""
+        g = torch.Generator(device=dev).manual_seed(d)
+        a_t = torch.randn(d * d, M, generator=g, device=dev,
+                          dtype=torch.float64)
+        a_t[::d + 1] += max(5.0, 2 * d ** 0.5)      # rows (i, i)
+        b_t = torch.randn(d, M, generator=g, device=dev, dtype=torch.float64)
+        return a_t.to(dtype), b_t.to(dtype)
+
+    def beyond_16(d, dtype, kernels):
+        """kernels: (name, kernel, twin, inputs) at D = d, M = 65,536: each
+        equal to its twin to the bit, its time (CUDA events) beside the
+        library call's and the bound; a record each in tile[name]."""
+        for name, kern, twin, ins in kernels:
+            out = []
+            plain_ms = bench.events_ms(lambda: out.append(twin(*ins)), 1)
+            ref = out[0]
+            got = kern(*ins)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                _fail(f"{name} D={d} {dtype}: not equal to its twin to the "
+                      f"bit (max|err| {float((got - ref).abs().max()):.3e})")
+            bms, by = bench.bound_ms(*bench.lu_work(name, d, M, dtype), dtype)
+            lib = bench.library_call(name, a_t, b_t, ins[0])
+            lib()                   # the library's first-call setup, untimed
+            tile[name].append({
+                "D": d, "dtype": str(dtype).replace("torch.", ""),
+                "ms": bench.events_ms(lambda: kern(*ins), 5),
+                "plain_ms": plain_ms,
+                "bound_ms": bms, "bound_by": by,
+                "library_ms": bench.events_ms(lib, 5), "max_abs_err": 0.0})
+            del lib
+
+    def tile_line(names):
+        return "; ".join(
+            f"{n} D={r['D']} {r['dtype']} {r['ms']:.4f} ms (library "
+            f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+            f"{r['bound_by']}, twin {r['plain_ms']:.1f})"
+            for n in names for r in tile[n])
+
+    t_tile = time.perf_counter()
+    for dtype in (torch.float64, torch.float32):
+        for d in (17, 28, 56):
+            a_t, b_t = tile_inputs(d, dtype)
+            lu_ref = smalllu.lu_factor_t_ref(a_t)
+            beyond_16(d, dtype, (
+                ("lu_factor_t", smalllu.lu_factor_t, smalllu.lu_factor_t_ref,
+                 (a_t,)),
+                ("lu_solve_t", smalllu.lu_solve_t, smalllu.lu_solve_t_ref,
+                 (lu_ref, b_t))))
+            del a_t, b_t, lu_ref
+    print("[kernels D > 16] M=65536, K1 the tile kernel, K2 its run-time-D "
+          "kernel, each equal to its twin to the bit: "
+          + tile_line(("lu_factor_t", "lu_solve_t"))
+          + f" | {time.perf_counter() - t_tile:.1f} s", flush=True)
 
     # ---- 4. headline, f64 --------------------------------------------------
     def headline(dtype, kernel_lu, compensated=False):
@@ -599,6 +642,16 @@ def main():
                         *bench.lu_work("linsolve_fused", d, m, dtype), dtype)
                     k3_lib = bench.events_ms(bench.library_call(
                         "linsolve_fused", a_t, b_t, None), 50)
+    t_tile = time.perf_counter()
+    for dtype in (torch.float64, torch.float32):
+        for d in (17, 28, 56):
+            a_t, b_t = tile_inputs(d, dtype)
+            beyond_16(d, dtype, (("linsolve_fused", smalllu.linsolve_fused,
+                                  smalllu.linsolve_fused_ref, (a_t, b_t)),))
+            del a_t, b_t
+    print("[K3 D > 16] M=65536, the tile kernel, equal to its twin to the "
+          "bit: " + tile_line(("linsolve_fused",))
+          + f" | {time.perf_counter() - t_tile:.1f} s", flush=True)
     # the K3 path: the public op ops.linsolve_fused at D=4, M=65,536
     smalllu.reset_launch_counts()
     janus_ops.linsolve_fused(*k3_in)
@@ -836,6 +889,8 @@ def main():
     # ---- 13. the matrix-free Radau path ---------------------------------------
     # ---- 14. the continuous adjoint (the last two phases of mol.PHASES) ------
     t13 = time.perf_counter()
+    print(f"[phases 1-12] {t13 - t_start:.1f} s, the build included",
+          flush=True)
     report = mol.run(dev, smoke=True)  # raises mol.MolCheckFailed
     print(f"[phase 13-14] {time.perf_counter() - t13:.1f} s", flush=True)
     adj_launches = report["vdp_adjoint"]["launches"]
@@ -922,6 +977,11 @@ def main():
         f"{fused[name]['build']['local_bytes']} B local)"
         for name in ("dubins_pmp", "hires")) + f" | {smi}", flush=True)
     print(f"[phase 25] {time.perf_counter() - t25:.1f} s", flush=True)
+
+    # ---- 26. Radau5 on Pleiades: K1's tile kernel at D = 28 and 56 ---------
+    t26 = time.perf_counter()
+    pleiades = lu_tile_probe.run(dev, smoke=True)  # raises LuTileCheckFailed
+    print(f"[phase 26] {time.perf_counter() - t26:.1f} s", flush=True)
     print(f"[total] {time.perf_counter() - t_start:.1f} s, the build "
           "included", flush=True)
 
@@ -930,7 +990,7 @@ def main():
                                         extra["lu_solve_t"])
     print(json.dumps({"kernels": [
         {"name": "lu_factor_t", "route": "cuda",
-         "source": "janus_tpu_torch/csrc/smalllu.cu",
+         "source": "janus_tpu_torch/csrc/smalllu.cu + smalllu_tile.cu",
          "replaces": "janus_tpu/ops/smalllu_pallas.py:84",
          "launches": launches["K1"], "max_abs_err": err["K1"]["float64"],
          "ms": k1, "plain_ms": k1p, "bound_ms": b1, "bound_by": by1,
@@ -939,7 +999,9 @@ def main():
          "launches_rodas": rodas_launches["K1"],
          **{k: v["K1"] for k, v in route.items()},
          "launches_sharded": [r["K1"] for r in sharded],
-         "launches_lockstep": lockstep["K1"], "above_16": big["lu_factor_t"]},
+         "launches_lockstep": lockstep["K1"],
+         "launches_pleiades": pleiades["launches_by_d"]["K1"],
+         "tile": tile["lu_factor_t"]},
         {"name": "lu_solve_t", "route": "cuda",
          "source": "janus_tpu_torch/csrc/smalllu.cu",
          "replaces": "janus_tpu/ops/smalllu_pallas.py:115",
@@ -950,14 +1012,17 @@ def main():
          "launches_rodas": rodas_launches["K2"],
          **{k: v["K2"] for k, v in route.items()},
          "launches_sharded": [r["K2"] for r in sharded],
-         "launches_lockstep": lockstep["K2"], "above_16": big["lu_solve_t"]},
+         "launches_lockstep": lockstep["K2"],
+         "launches_pleiades": pleiades["launches_by_d"]["K2"],
+         "above_16": tile["lu_solve_t"]},
         {"name": "linsolve_fused", "route": "cuda",
-         "source": "janus_tpu_torch/csrc/smalllu.cu",
+         "source": "janus_tpu_torch/csrc/smalllu.cu + smalllu_tile.cu",
          "replaces": "janus_tpu/ops/smalllu_pallas.py:55",
          "launches": launches["K3"], "max_abs_err": err["K3"]["float64"],
          "ms": k3, "plain_ms": k3p, "bound_ms": k3_bound[0],
          "bound_by": k3_bound[1], "library_ms": k3_lib,
-         "shape": f"D=4 M={M} float64 (library: pivoted solve)"},
+         "shape": f"D=4 M={M} float64 (library: pivoted solve)",
+         "tile": tile["linsolve_fused"]},
         {"name": "radau5_step", "route": "cuda",
          "source": "janus_tpu_torch/csrc/radau_fused.cu + radau5_step.cuh",
          "replaces": "janus_tpu/solve/radau_fused.py:170",

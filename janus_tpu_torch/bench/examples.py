@@ -75,10 +75,11 @@ tens of seconds to hours:
   (relative) of the CPU's, at the reference's TPU tolerances rtol 1e-5,
   atol 1e-8: one H·v at rtol 1e-9 takes ~50 s).
 - ``min_time``: ``vdp_min_time.main`` (8 umax lanes, the six-rung ε
-  ladder; tF falls with umax, max |H| along the trajectories; smoke → one
-  Levenberg–Marquardt iteration of ``newton_free_tf`` on four umax lanes
-  from tF = 0.3: every lane's |F| no larger, some smaller, the IND
-  tangents finite, z, |F| and the tangents within 1e-9 of the CPU's).
+  ladder; tF falls with umax, max |H| along the trajectories; smoke →
+  ``newton_free_tf``'s first evaluation on four umax lanes from tF = 0.3,
+  the residual F(z0) and its exact Jacobian from the IND tangents (one
+  solve; a whole Levenberg–Marquardt iteration takes four): finite, F, the
+  Jacobian and the tangents within 1e-9 of the CPU's).
 
 Each CPU result named above is the port's own, on the same inputs, at the
 CPU tests' tolerances (those tests hold it to the reference's); it is
@@ -607,10 +608,10 @@ def newton_cg_part(dev, smoke=False, cpu=None):
             "seconds_kernel": secs[True], "seconds_plain": secs[False]}
 
 
-def _min_time_lm(dev):
-    """One Levenberg–Marquardt iteration of ``newton_free_tf`` on four umax
-    lanes from tF = 0.3 (ε = 0.5, rtol 1e-8, atol 1e-11): (z0, |F(z0)|, z,
-    |F(z)|, the IND tangents at z)."""
+def _min_time_first(dev):
+    """``newton_free_tf``'s first evaluation on four umax lanes from tF = 0.3
+    (ε = 0.5, rtol 1e-8, atol 1e-11): (F(z0), its exact Jacobian, the IND
+    tangents)."""
     from janus_tpu_torch.examples import vdp_min_time as mt
     from janus_tpu_torch.solve import Options
 
@@ -619,30 +620,29 @@ def _min_time_lm(dev):
     z0 = torch.tensor([[0.6, 0.6, 0.3], [0.4, 0.7, 0.3], [0.8, 0.3, 0.3],
                        [0.5, 0.5, 0.3]], dtype=torch.float64, device=dev)
     args = (mt.MU, umax, torch.tensor(0.5, dtype=torch.float64, device=dev))
-    z, fn, sol = mt.newton_free_tf(z0, args, opts, iters=1)
-    return mt._norm(mt.residual(z0, args, opts)), z, fn, sol.sens
+    fvec, jac, sol = mt.residual_and_jac(z0, args, opts)
+    return fvec, jac, sol.sens
 
 
 def min_time_part(dev, smoke=False, cpu=None):
     from janus_tpu_torch.examples import vdp_min_time as mt
 
     if smoke:
-        (fn0, z, fn, sens), sec = _timed(lambda: _min_time_lm(dev))
-        if not (bool(torch.isfinite(sens).all())
-                and bool((fn <= fn0 * (1 + 1e-9)).all())
-                and bool((fn < fn0).any())):
-            raise ExamplesCheckFailed(f"vdp_min_time: |F| {fn0.tolist()} -> "
-                                      f"{fn.tolist()}")
-        _, zc, fnc, sensc = cpu.result()
-        name = "vdp_min_time z, |F| and the IND tangents"
-        err = max(_close(name, z, zc, atol=1e-9),
-                  _close(name, fn, fnc, atol=1e-9),
-                  _close(name, sens, sensc, atol=1e-9))
-        print(f"[vdp_min_time on the card, one LM iteration on 4 umax lanes] "
-              f"|F| {fn0.tolist()} -> {fn.tolist()} | z, |F| and the IND "
-              f"tangents vs the CPU {err:.3e} (bound 1e-9) | {sec:.2f} s",
-              flush=True)
-        return {"fn0": fn0.tolist(), "fn": fn.tolist(), "vs_cpu": err,
+        (fvec, jac, sens), sec = _timed(lambda: _min_time_first(dev))
+        if not all(bool(torch.isfinite(x).all()) for x in (fvec, jac, sens)):
+            raise ExamplesCheckFailed(f"vdp_min_time: F {fvec.tolist()}, "
+                                      "its Jacobian or the tangents not "
+                                      "finite")
+        fc, jc, sc = cpu.result()
+        name = "vdp_min_time F(z0), its Jacobian and the IND tangents"
+        err = max(_close(name, fvec, fc, atol=1e-9),
+                  _close(name, jac, jc, atol=1e-9),
+                  _close(name, sens, sc, atol=1e-9))
+        print(f"[vdp_min_time on the card, the first evaluation on 4 umax "
+              f"lanes] |F(z0)| {mt._norm(fvec).tolist()} | F, its Jacobian "
+              f"and the IND tangents vs the CPU {err:.3e} (bound 1e-9) | "
+              f"{sec:.2f} s", flush=True)
+        return {"fn0": mt._norm(fvec).tolist(), "vs_cpu": err,
                 "seconds": sec}
     (umax, tf_t, fn, h_max), sec = _timed(lambda: mt.main(dev))
     print(f"[vdp_min_time on the card] umax {umax.tolist()}: tF "
@@ -663,7 +663,7 @@ def _cpu_side(part, smoke):
         "pmp_energy": (_pmp_residuals, cpu) if smoke else None,
         "event_time": (_event_time, cpu, _event_steps(smoke)),
         "newton_cg": (_newton_cg_one, cpu, True) if smoke else None,
-        "min_time": (_min_time_lm, cpu) if smoke else None,
+        "min_time": (_min_time_first, cpu) if smoke else None,
     }.get(part)
 
 

@@ -7,16 +7,21 @@ call of the K4 wrapper) and a probe, run from the root of a checkout on a
 machine with a CUDA card and nvcc:
 
     python3 -m janus_tpu_torch.bench.kernels [--parent DIR] [--reps N]
-        [--skip-lu] [--k4-only] [--radau-lu [--pairs N] [--no-launches]]
-        [--json PATH]
+        [--skip-lu] [--skip-k4] [--k4-only] [--tile-only] [--radau-lu
+        [--pairs N] [--no-launches]] [--json PATH]
 
 It prints, one line each:
 - K1-K3 against the PyTorch call that computes the same function
   (``torch.linalg.lu_factor(pivot=False)``, ``lu_solve``, and the pivoted
-  ``torch.linalg.solve``), D in {2, 4, 8, 24} (8: the split-complex
-  blocks of a D = 4 system; 24: the run-time-D kernels above 16), M =
+  ``torch.linalg.solve``), D in ``LU_DIMS`` = {2, 4, 8, 12, 16, 17, 24, 28,
+  32, 56} (8: the split-complex blocks of a D = 4 system; 28 and 56: the
+  Pleiades blocks; K1/K3 above ``MAX_UNROLLED_D`` the tile kernels), M =
   65,536, f64 and f32: wall time by CUDA events and device time by
-  torch.profiler of each, and the bound;
+  torch.profiler of each, and the bound; K1 and K3 also in both forms
+  (tile and unrolled) at ``SWITCH_DIMS`` = 9-16, either side of the
+  switch, by device time. With ``--parent DIR``, K1 and K3 at the sweep's
+  D above 8 in the checkout at DIR and in this one, each side a process of
+  its own running ``--tile-only``, in turns (parent, this, this, parent);
 - pow(x, e) built with and without FMA contraction against PyTorch's, on
   2^25 inputs at K4's exponents (csrc/pow_fmad.cu);
 - K4 in whole fused solves (VdP mu = 1e3 headline, 65,536 and 4 x 65,536
@@ -139,16 +144,24 @@ def lu_inputs(rng, d, m, dtype, dev):
     return a_t, b_t
 
 
+LU_DIMS = (2, 4, 8, 12, 16, 17, 24, 28, 32, 56)
+# D either side of the K1/K3 switch (ops.smalllu.MAX_UNROLLED_D), where
+# both forms are timed
+SWITCH_DIMS = (9, 10, 11, 12, 13, 14, 15, 16)
+DTYPES = (torch.float64, torch.float32)
+
+
 def lu_table(dev, reps=50):
-    """K1-K3 and their library calls at D in {2, 4, 8, 24}, M = 65,536,
-    f64/f32 (D = 8: the size of the split-complex blocks of a D = 4
-    system; 24: the run-time-D kernels above 16)."""
+    """K1-K3 and their library calls at D in LU_DIMS, M = 65,536, f64/f32
+    (D = 8: the split-complex blocks of a D = 4 system; 28 and 56 the
+    Pleiades blocks of bench.lu_tile; K1/K3 above MAX_UNROLLED_D the tile
+    kernels)."""
     import numpy as np
     from janus_tpu_torch.ops import smalllu
     rng = np.random.default_rng(0)
     rows = []
-    for dtype in (torch.float64, torch.float32):
-        for d in (2, 4, 8, 24):
+    for dtype in DTYPES:
+        for d in LU_DIMS:
             a_t, b_t = lu_inputs(rng, d, M, dtype, dev)
             lu_t = smalllu.lu_factor_t(a_t)
             kern = {"lu_factor_t": lambda: smalllu.lu_factor_t(a_t),
@@ -165,6 +178,7 @@ def lu_table(dev, reps=50):
                 except RuntimeError as e:     # the library refuses the case
                     print(f"[lu] {name} D={d}: library call failed: {e}")
                     lib_ms = lib_dev = None
+                del lib
                 row = {"kernel": name, "d": d, "m": M,
                        "dtype": str(dtype).replace("torch.", ""),
                        "ms": events_ms(fn, reps),
@@ -177,7 +191,74 @@ def lu_table(dev, reps=50):
                       f" | library {_ms(lib_ms)} (device "
                       f"{_ms(lib_dev)}) | bound "
                       f"{bms:.5f} ms by {by}", flush=True)
+            del a_t, b_t, lu_t
     return rows
+
+
+def switch_table(dev, reps=20):
+    """K1 and K3 in both forms (the tile kernel and the one instantiated
+    for D, ``ops.smalllu._tile`` / ``_unrolled``) at SWITCH_DIMS, M =
+    65,536, f64/f32: device ms of each, where MAX_UNROLLED_D is chosen."""
+    import numpy as np
+    from janus_tpu_torch.ops import smalllu
+    rng = np.random.default_rng(0)
+    rows = []
+    for dtype in DTYPES:
+        for d in SWITCH_DIMS:
+            a_t, b_t = lu_inputs(rng, d, M, dtype, dev)
+            for name, args in (("lu_factor_t", (a_t,)),
+                               ("linsolve_fused", (a_t, b_t))):
+                ms = {form.__name__.strip("_"): device_ms(
+                    lambda: form(*args), reps)
+                    for form in (smalllu._tile, smalllu._unrolled)}
+                rows.append({"kernel": name, "d": d,
+                             "dtype": str(dtype).replace("torch.", ""),
+                             "device_ms": ms})
+                print(f"[lu switch] {name} D={d} M={M} {rows[-1]['dtype']}:"
+                      f" device tile {_ms(ms['tile'])}, unrolled "
+                      f"{_ms(ms['unrolled'])}", flush=True)
+    return rows
+
+
+def tile_rows(dev, reps=20):
+    """K1 and K3 through their wrappers at LU_DIMS above 8, M = 65,536,
+    f64/f32: device ms each (``--tile-only``, the child of ``lu_against``,
+    which runs this file in another checkout)."""
+    import numpy as np
+    from janus_tpu_torch.ops import smalllu
+    rng = np.random.default_rng(0)
+    rows = []
+    for dtype in DTYPES:
+        for d in (d for d in LU_DIMS if d > 8):
+            a_t, b_t = lu_inputs(rng, d, M, dtype, dev)
+            for name, fn in (("lu_factor_t", lambda: smalllu.lu_factor_t(a_t)),
+                             ("linsolve_fused",
+                              lambda: smalllu.linsolve_fused(a_t, b_t))):
+                rows.append({"kernel": name, "d": d,
+                             "dtype": str(dtype).replace("torch.", ""),
+                             "device_ms": device_ms(fn, reps)})
+    return rows
+
+
+def lu_against(parent: Path, reps):
+    """K1 and K3 of this checkout against the one at parent at LU_DIMS above
+    8, f64 and f32, each side a process of its own in turns (parent, this,
+    this, parent): {"this": [rows, rows], "parent": [...]}, and one line a
+    (kernel, D, dtype) with each side's device ms."""
+    here = Path(__file__).resolve().parents[2]
+    runs = {"parent": [], "this": []}
+    for side in ("parent", "this", "this", "parent"):
+        runs[side].append(in_checkout(parent if side == "parent" else here,
+                                      ["--tile-only"], reps))
+    for row in runs["this"][0]:
+        key = (row["kernel"], row["d"], row["dtype"])
+        dev_ms = {side: [r["device_ms"] for rs in runs[side] for r in rs
+                         if (r["kernel"], r["d"], r["dtype"]) == key]
+                  for side in runs}
+        print(f"[lu vs parent] {key[0]} D={key[1]} {key[2]}: device ms this "
+              + ", ".join(_ms(x) for x in dev_ms["this"]) + "; parent "
+              + ", ".join(_ms(x) for x in dev_ms["parent"]), flush=True)
+    return runs
 
 
 def _ms(x):
@@ -477,9 +558,9 @@ def radau_lu_times(dev, reps=3, launches=True):
 
 
 def in_checkout(checkout: Path, flags, reps):
-    """The ``--k4-only`` or ``--radau-lu`` report of the package in another
-    checkout (an earlier commit), in a process of its own started there,
-    with this file. flags: the probe's flags, a list."""
+    """The ``--k4-only``, ``--tile-only`` or ``--radau-lu`` report of the
+    package in another checkout (an earlier commit), in a process of its
+    own started there, with this file. flags: the probe's flags, a list."""
     code = ("import runpy, sys; sys.path.insert(0, '.'); sys.argv = "
             f"['kernels', *{flags!r}, '--reps', '{reps}']; "
             f"runpy.run_path({str(Path(__file__).resolve())!r}, "
@@ -600,8 +681,14 @@ def main(argv=None):
     ap.add_argument("--no-launches", action="store_true",
                     help="--radau-lu: skip the profiled solve")
     ap.add_argument("--skip-lu", action="store_true")
+    ap.add_argument("--skip-k4", action="store_true",
+                    help="no pow check and no K4 solves")
     ap.add_argument("--k4-only", action="store_true",
                     help="only the K4 solves; the last line is their report")
+    ap.add_argument("--tile-only", action="store_true",
+                    help="only K1 and K3 at LU_DIMS above 8, no library "
+                         "call (--parent's child); the last line is their "
+                         "rows")
     ap.add_argument("--radau-lu", action="store_true",
                     help="only the plain-LU Radau9 headline (in turns with "
                          "--parent, if given); the last line is its report")
@@ -614,6 +701,9 @@ def main(argv=None):
     dev = torch.device("cuda:0")
     if a.k4_only:
         print(json.dumps(k4_times(dev, a.reps)))
+        return 0
+    if a.tile_only:
+        print(json.dumps(tile_rows(dev)))
         return 0
     if a.radau_lu and a.parent is None:
         print(json.dumps(radau_lu_times(dev, a.reps, not a.no_launches)))
@@ -629,9 +719,13 @@ def main(argv=None):
         return _emit(report, a.json)
     if not a.skip_lu:
         report["lu"] = lu_table(dev)
-    report["pow"] = pow_agreement(dev)
-    report["k4"] = (k4_against(dev, a.parent, a.reps) if a.parent
-                    else k4_times(dev, a.reps))
+        report["lu_switch"] = switch_table(dev)
+        if a.parent:
+            report["lu_vs_parent"] = lu_against(a.parent, a.reps)
+    if not a.skip_k4:
+        report["pow"] = pow_agreement(dev)
+        report["k4"] = (k4_against(dev, a.parent, a.reps) if a.parent
+                        else k4_times(dev, a.reps))
     return _emit(report, a.json)
 
 

@@ -72,6 +72,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from janus_tpu_torch.bench.cpu_side import Later
 from janus_tpu_torch.bench.kernels import events_ms
 from janus_tpu_torch.control import precond
 from janus_tpu_torch.linalg import gmres as gm
@@ -542,9 +543,10 @@ def line_gradient(m, dtype, dev, opts, wrap=None, backward=True):
     return loss.detach(), y0.grad, rates.grad
 
 
-def _check_line_gradient(dev, opts, g_y0, g_rates):
+def _check_line_gradient(dev, opts, g_y0, g_rates, on_cpu):
     """The 1,024-lane f64 gradient against central differences, IND and the
-    CPU; returns the three worst relative errors."""
+    CPU (on_cpu: the ``Later`` of line_gradient's 4 CPU lanes); returns the
+    three worst relative errors."""
     m, dtype = g_y0.shape[0], torch.float64
     rhs, y0, (nu, rates) = mol_line(m, dtype, dev)
     d = y0.shape[1]
@@ -580,7 +582,7 @@ def _check_line_gradient(dev, opts, g_y0, g_rates):
                              f"{ind:.9g}: {err_ind:.3e} > 2e-3")
     # 4 lanes on the card against the same call on the CPU
     on_card = line_gradient(4, dtype, dev, opts)
-    on_cpu = line_gradient(4, dtype, torch.device("cpu"), opts)
+    on_cpu = on_cpu.result()
     err_cpu = max(float((a.cpu() - b).abs().max() / b.abs().max())
                   for a, b in zip(on_card[1:], on_cpu[1:]))
     if not err_cpu <= 1e-8:
@@ -612,6 +614,9 @@ def adjoint_phase(dev, m, dtype, reps=3, checks=False, profile=True):
             return solve_radau(rhs, 0.0, TF_LINE, y0, args=(nu, rates),
                                options=opts, _mesh_size=ADJ_STEPS)
 
+    # the checks' CPU side, in a worker beside the card's work
+    on_cpu = (Later(line_gradient, 4, torch.float64, torch.device("cpu"),
+                    opts) if checks else None)
     _reset_kernel_launches()
     torch.cuda.reset_peak_memory_stats(dev)
     first = []
@@ -634,7 +639,8 @@ def adjoint_phase(dev, m, dtype, reps=3, checks=False, profile=True):
         raise MolCheckFailed(f"{name}: forward not SUCCESS on every lane, or "
                              f"max(naccept) {nacc} > {ADJ_STEPS}")
     del sol
-    errs = _check_line_gradient(dev, opts, g_y0, g_rates) if checks else None
+    errs = (_check_line_gradient(dev, opts, g_y0, g_rates, on_cpu)
+            if checks else None)
     if reps:
         ms = statistics.median(
             events_ms(lambda: line_gradient(m, dtype, dev, opts), 1)
@@ -758,15 +764,15 @@ def run(dev, only=PHASES, smoke=False):
                                         reps, not smoke)[0]
     if "gmres" in only:
         report["gmres"] = timed("gmres", gmres_phase, y_tridiag,
-                                span25=TF_LINE / (32 if smoke else 4))
+                                span25=TF_LINE / (64 if smoke else 4))
     if "heat" in only:
         report["heat"] = timed("heat", heat_phase)
     if "block" in only:
         report["block"] = timed("block", block_phase,
-                                tf=0.015625 if smoke else 0.5)
+                                tf=0.00390625 if smoke else 0.5)
     if "ind" in only:
         report["ind"] = timed("ind", ind_phase,
-                              tf=TF_LINE / (64 if smoke else 4))
+                              tf=TF_LINE / (128 if smoke else 4))
     if "adjoint" in only:
         adj_reps = 0 if smoke else reps
         report["adjoint_1024_f64"] = timed("adjoint", adjoint_phase, 1024,

@@ -8,13 +8,14 @@
 //
 // Shape of the work: one thread per lane. D is a template parameter
 // (1..16), so the loops unroll and the matrix lives in registers; a grid-
-// stride loop covers any M and masks the ragged end. Above 16 (the split-
-// complex blocks of Radau at D >= 9) the *_rt kernels take D at run time:
-// one lane a thread as well, working in place on the SoA factors (K1), the
-// solution (K2) or a copy of A (K3's work buffer) in device memory, whose
-// accesses coalesce across the lanes of a warp as the loads above do. Simple
-// and correct, not fast: every operation reads and writes through the L1/L2
-// caches.
+// stride loop covers any M and masks the ragged end. K1 and K3 above
+// ops/smalllu.py:MAX_UNROLLED_D (the split-complex blocks of Radau at
+// D >= 9) are csrc/smalllu_tile.cu's: a tile of lanes whole in shared
+// memory, a lane's rows spread over threads. K2 above 16 takes D at run
+// time here (lu_solve_t_rt_kernel): one lane a thread, in place on the
+// solution in device memory, whose accesses coalesce across the lanes of a
+// warp as the loads above do; every operation reads and writes through the
+// L1/L2 caches.
 //
 // What bounds it on this card: each lane is independent and does O(D^3/3)
 // flops on D^2 values, so at the slice's D <= 4 the kernels are memory
@@ -140,29 +141,7 @@ linsolve_fused_kernel(const T* __restrict__ a, const T* __restrict__ b,
   }
 }
 
-// ---- D > 16, D at run time --------------------------------------------
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-lu_factor_t_rt_kernel(const T* __restrict__ a, T* __restrict__ lu, int d,
-                      int64_t m) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       lane < m; lane += stride) {
-#define R(i, j) lu[((int64_t)(i) * d + (j)) * m + lane]
-    for (int e = 0; e < d * d; ++e) lu[(int64_t)e * m + lane] = a[(int64_t)e * m + lane];
-    for (int k = 0; k < d; ++k) {
-      const T piv = R(k, k);
-      const T safe = piv == T(0) ? T(1) : piv;
-      for (int i = k + 1; i < d; ++i) {
-        const T mult = R(i, k) / safe;
-        R(i, k) = mult;
-        for (int j = k + 1; j < d; ++j) R(i, j) = R(i, j) - mult * R(k, j);
-      }
-    }
-#undef R
-  }
-}
+// ---- K2 above 16, D at run time ----------------------------------------
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -182,37 +161,6 @@ lu_solve_t_rt_kernel(const T* __restrict__ lu, const T* __restrict__ b,
       V(i) = V(i) / (diag == T(0) ? T(1) : diag);
     }
 #undef LU
-#undef V
-  }
-}
-
-// work [D*D, M]: a copy of A, eliminated in place
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-linsolve_fused_rt_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                         T* __restrict__ x, T* __restrict__ work, int d,
-                         int64_t m) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       lane < m; lane += stride) {
-#define R(i, j) work[((int64_t)(i) * d + (j)) * m + lane]
-#define V(i) x[(int64_t)(i) * m + lane]
-    for (int e = 0; e < d * d; ++e)
-      work[(int64_t)e * m + lane] = a[(int64_t)e * m + lane];
-    for (int i = 0; i < d; ++i) V(i) = b[(int64_t)i * m + lane];
-    for (int k = 0; k < d; ++k) {
-      const T inv = T(1) / R(k, k);
-      for (int i = k + 1; i < d; ++i) {
-        const T mult = R(i, k) * inv;
-        for (int j = k + 1; j < d; ++j) R(i, j) = R(i, j) - mult * R(k, j);
-        V(i) = V(i) - mult * V(k);
-      }
-    }
-    for (int i = d - 1; i >= 0; --i) {
-      for (int j = i + 1; j < d; ++j) V(i) = V(i) - R(i, j) * V(j);
-      V(i) = V(i) / R(i, i);
-    }
-#undef R
 #undef V
   }
 }
@@ -258,10 +206,7 @@ bool dispatch_factor(int d, const void* a, void* lu, int64_t m,
     JANUS_CASE(13) JANUS_CASE(14) JANUS_CASE(15) JANUS_CASE(16)
 #undef JANUS_CASE
     default:
-      if (d < 1) return false;
-      lu_factor_t_rt_kernel<T><<<grid_for(m), kThreads, 0, s>>>(
-          static_cast<const T*>(a), static_cast<T*>(lu), d, m);
-      return true;
+      return false;   // above 16: csrc/smalllu_tile.cu
   }
 }
 
@@ -285,8 +230,8 @@ bool dispatch_solve(int d, const void* lu, const void* b, void* x, int64_t m,
 }
 
 template <typename T>
-bool dispatch_fused(int d, const void* a, const void* b, void* x, void* work,
-                    int64_t m, cudaStream_t s) {
+bool dispatch_fused(int d, const void* a, const void* b, void* x, int64_t m,
+                    cudaStream_t s) {
   switch (d) {
 #define JANUS_CASE(D) case D: launch_fused<T, D>(a, b, x, m, s); return true;
     JANUS_CASE(1) JANUS_CASE(2) JANUS_CASE(3) JANUS_CASE(4)
@@ -295,11 +240,7 @@ bool dispatch_fused(int d, const void* a, const void* b, void* x, void* work,
     JANUS_CASE(13) JANUS_CASE(14) JANUS_CASE(15) JANUS_CASE(16)
 #undef JANUS_CASE
     default:
-      if (d < 1 || work == nullptr) return false;
-      linsolve_fused_rt_kernel<T><<<grid_for(m), kThreads, 0, s>>>(
-          static_cast<const T*>(a), static_cast<const T*>(b),
-          static_cast<T*>(x), static_cast<T*>(work), d, m);
-      return true;
+      return false;   // above 16: csrc/smalllu_tile.cu
   }
 }
 
@@ -307,7 +248,7 @@ bool dispatch_fused(int d, const void* a, const void* b, void* x, void* work,
 
 extern "C" {
 
-// K1: lu_t[D*D, M] = packed pivot-free L\U of a_t[D*D, M].
+// K1: lu_t[D*D, M] = packed pivot-free L\U of a_t[D*D, M], D = 1..16.
 int janus_lu_factor_t(const void* a_t, void* lu_t, int d, int64_t m,
                       int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -327,15 +268,13 @@ int janus_lu_solve_t(const void* lu_t, const void* b_t, void* x_t, int d,
   return (int)cudaGetLastError();
 }
 
-// K3: x_t[D, M] = A^-1 b_t for a_t[D*D, M], factor and solve in one pass.
-// work [D*D, M] is scratch for D > 16 (may be null below).
-int janus_linsolve_fused(const void* a_t, const void* b_t, void* x_t,
-                         void* work, int d, int64_t m, int dtype,
-                         void* stream) {
+// K3: x_t[D, M] = A^-1 b_t for a_t[D*D, M], factor and solve in one pass,
+// D = 1..16.
+int janus_linsolve_fused(const void* a_t, const void* b_t, void* x_t, int d,
+                         int64_t m, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool ok =
-      dtype == 1 ? dispatch_fused<double>(d, a_t, b_t, x_t, work, m, s)
-                 : dispatch_fused<float>(d, a_t, b_t, x_t, work, m, s);
+  const bool ok = dtype == 1 ? dispatch_fused<double>(d, a_t, b_t, x_t, m, s)
+                             : dispatch_fused<float>(d, a_t, b_t, x_t, m, s);
   if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

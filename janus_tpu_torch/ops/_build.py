@@ -2,7 +2,7 @@
 
 ``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
 -Xcompiler -fPIC -Xptxas -v -c`` compiles each ``csrc/*.cu`` (one nvcc per
-source, all started together; ``SOURCE_FLAGS`` names the two sources built
+source, all started together; ``SOURCE_FLAGS`` names the sources built
 otherwise) and one ``nvcc -shared`` links them, device code included, into a
 shared library with a plain C interface under ``janus_tpu_torch/_build/``
 (git-ignored), named by a hash of the sources and flags, so an edited
@@ -46,9 +46,18 @@ FMAD_OFF = ["-fmad=false"]
 # K4 calls pow in double from pow_fmad.cu, built with contraction as
 # PyTorch builds its kernels (the twin's pow; see that file), so both are
 # relocatable device code, joined when the library is linked.
+# K1/K3's tile kernel is instantiated for Q = 2, 4 and 8 rows a thread at
+# most, each with __launch_bounds__(threads a block, blocks a SM): 64, 128
+# and 255 registers a thread. Stated here only: compiled in as
+# JANUS_TILE_Q<Q>_THREADS / _BLOCKS, and read by ops/smalllu.py's geometry.
+TILE_BOUNDS = {2: (512, 2), 4: (512, 1), 8: (128, 2)}
 SOURCE_FLAGS = {"radau_fused.cu": ["-fmad=false", "-rdc=true"],
                 "pow_fmad.cu": ["-fmad=true", "-rdc=true"],
-                "libm_fmad.cu": ["-fmad=true", "-rdc=true"]}
+                "libm_fmad.cu": ["-fmad=true", "-rdc=true"],
+                "smalllu_tile.cu": FMAD_OFF + [
+                    f"-DJANUS_TILE_Q{q}_{what}={n}"
+                    for q, bounds in TILE_BOUNDS.items()
+                    for what, n in zip(("THREADS", "BLOCKS"), bounds)]}
 # a generated unit: K4's flags; the functions PyTorch's kernels compute
 # with contraction come from these two sources (rhs_ops.cuh)
 UNIT_FLAGS = SOURCE_FLAGS["radau_fused.cu"]
@@ -149,9 +158,14 @@ def load_library(verbose: bool = False):
         lib.janus_lu_factor_t.restype = i32
         lib.janus_lu_solve_t.argtypes = [vp, vp, vp, i32, i64, i32, vp]
         lib.janus_lu_solve_t.restype = i32
-        lib.janus_linsolve_fused.argtypes = [vp, vp, vp, vp, i32, i64, i32,
-                                             vp]
+        lib.janus_linsolve_fused.argtypes = [vp, vp, vp, i32, i64, i32, vp]
         lib.janus_linsolve_fused.restype = i32
+        lib.janus_lu_tile.argtypes = [vp, vp, vp, i32, i64, i32, i32, i32,
+                                      i32, i32, i64, vp]
+        lib.janus_lu_tile.restype = i32
+        lib.janus_lu_tile_attributes.argtypes = [i32, i32, i32, i32, i32, i32,
+                                                 i64, vp]
+        lib.janus_lu_tile_attributes.restype = i32
         lib.janus_radau5_step.argtypes = [vp, vp, vp, i64, ctypes.c_char_p,
                                           i32, i32, i32, vp, i32, vp]
         lib.janus_radau5_step.restype = i32

@@ -9,7 +9,15 @@ K1-K3: M = 65,536 and a ragged 700, D ∈ {2, 3, 4, 6}; random diagonally
 dominant matrices (+5·I). Tolerance, relative to the largest entry of the
 twin's result: f64 1e-12, f32 1e-5. The kernels are built without FMA
 contraction and measured equal to their twins to the bit; the bounds leave
-room for a compiler that orders an operation otherwise.
+room for a compiler that orders an operation otherwise. Above the unrolled
+sizes (K1/K3's tile kernels, K2's run-time-D kernel): D ∈ {15, 16, 17, 24,
+28, 32, 56, 64}, M ∈ {65,536, 700, 65,535}, f64 and f32, with and without
+exact zero pivots (K1's guard; K3's inf/NaN, NaN positions equal), each
+equal to its twin to the bit (torch.equal); K1/K3 at 3-5 rows a thread
+(D = 65, 100, 129, 700 lanes, zero pivots) to the bit; the tile and unrolled forms of K1/K3
+at D = 9-16 both equal to the twins; the tile launch's own shared bytes,
+occupancy and local bytes (none) against ops.smalllu.tile_geometry; a D
+whose one lane does not fit refused by name.
 
 K4 (fused Radau5 step attempts): lanes of stiff Van der Pol with
 heterogeneous μ = logspace(1, 3) and of Robertson (tf = logspace(−2, 2)),
@@ -763,26 +771,106 @@ def test_reverse_time_round_trip_on_card():
     assert err < 1e-7 and err8 < 1e-7
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("d", [17, 24, 32])
-def test_kernels_beyond_16_equal_twins_to_the_bit(d, dtype):
-    dev = _card()
-    m = 4096
-    rng = np.random.default_rng(d)
-    a = rng.standard_normal((m, d, d)) + 5.0 * np.eye(d)
+# K1/K3 above MAX_UNROLLED_D (11-15) run the tile kernels
+# (csrc/smalllu_tile.cu), K2 above 16 its run-time-D kernel
+_BEYOND = [15, 16, 17, 24, 28, 32, 56, 64]
+
+
+def _soa(d, m, dtype, dev, zero_pivots=False):
+    """Random SoA a_t, b_t (+max(5, 2 sqrt(d))·I); with zero_pivots, every
+    7th lane's row 3 is zero (an exact zero pivot at k = 3: K1 guards it to
+    1, K3 divides by it) and every 11th lane's a[0][0] is 0."""
+    rng = np.random.default_rng(d * 7919 + m)
+    a = rng.standard_normal((m, d, d)) + max(5.0, 2.0 * d ** 0.5) * np.eye(d)
+    if zero_pivots:
+        a[::7, 3, :] = 0.0
+        a[1::11, 0, 0] = 0.0
     b = rng.standard_normal((m, d))
-    a_t = torch.from_numpy(np.ascontiguousarray(
-        a.transpose(1, 2, 0).reshape(d * d, m))).to(dev, dtype)
-    b_t = torch.from_numpy(np.ascontiguousarray(b.T)).to(dev, dtype)
+    return (torch.from_numpy(np.ascontiguousarray(
+        a.transpose(1, 2, 0).reshape(d * d, m))).to(dev, dtype),
+        torch.from_numpy(np.ascontiguousarray(b.T)).to(dev, dtype))
+
+
+def _equal_with_nans(got, ref):
+    """torch.equal, NaN positions equal (K3 on a zero pivot)."""
+    nan = torch.isnan(ref)
+    return (torch.equal(torch.isnan(got), nan)
+            and torch.equal(got[~nan], ref[~nan]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("zero_pivots", [False, True], ids=["", "zero_pivots"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("m", [65536, 700, 65535])
+@pytest.mark.parametrize("d", _BEYOND)
+def test_kernels_beyond_16_equal_twins_to_the_bit(d, m, dtype, zero_pivots):
+    dev = _card()
+    a_t, b_t = _soa(d, m, dtype, dev, zero_pivots)
     lu_ref = smalllu.lu_factor_t_ref(a_t)
+    x_ref = smalllu.linsolve_fused_ref(a_t, b_t)
     for got, ref in ((smalllu.lu_factor_t(a_t), lu_ref),
                      (smalllu.lu_solve_t(lu_ref, b_t),
                       smalllu.lu_solve_t_ref(lu_ref, b_t)),
-                     (smalllu.linsolve_fused(a_t, b_t),
-                      smalllu.linsolve_fused_ref(a_t, b_t))):
+                     (smalllu.linsolve_fused(a_t, b_t), x_ref)):
         torch.cuda.synchronize()
-        assert torch.equal(got, ref)
+        assert _equal_with_nans(got, ref)
+    assert bool(torch.isnan(x_ref).any()) == zero_pivots
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d", [65, 100, 129])
+def test_tile_kernel_at_4_and_8_rows_a_thread_equals_twins(d, dtype):
+    """Above D = 64 a thread owns 3-4 rows (Q = 4) or 5-8 (Q = 8): K1
+    and K3 equal to their twins to the bit on 700 lanes, some with an exact
+    zero pivot (the twins' element loops take ~10 s a call at D = 129)."""
+    dev = _card()
+    a_t, b_t = _soa(d, 700, dtype, dev, zero_pivots=True)
+    assert torch.equal(smalllu.lu_factor_t(a_t), smalllu.lu_factor_t_ref(a_t))
+    assert _equal_with_nans(smalllu.linsolve_fused(a_t, b_t),
+                            smalllu.linsolve_fused_ref(a_t, b_t))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d", [9, 11, 12, 13, 14, 15, 16])
+def test_tile_and_unrolled_forms_agree_to_the_bit(d, dtype):
+    """Either side of the switch both forms give the twins' bits."""
+    dev = _card()
+    a_t, b_t = _soa(d, 65536, dtype, dev, zero_pivots=True)
+    for form in (smalllu._tile, smalllu._unrolled):
+        assert torch.equal(form(a_t), smalllu.lu_factor_t_ref(a_t))
+        assert _equal_with_nans(form(a_t, b_t),
+                                smalllu.linsolve_fused_ref(a_t, b_t))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [False, True], ids=["K1", "K3"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d", [17, 24, 28, 32, 56, 64, 100, 169])
+def test_tile_geometry_is_the_launch_s(d, dtype, fused):
+    """The launch's own reckoning (janus_lu_tile_attributes) of the
+    geometry: the dynamic shared bytes tile_geometry states, at least its
+    blocks a SM (the occupancy query), no local memory."""
+    _card()
+    at = smalllu.tile_attributes(d, dtype, fused)
+    geo = at["geometry"]
+    assert at["smem_bytes"] == geo.smem_bytes
+    assert at["blocks_per_sm"] >= geo.blocks_per_sm
+    assert at["local_bytes"] == 0
+    assert at["max_threads"] >= geo.threads_per_block
+
+
+@pytest.mark.gpu
+def test_tile_refuses_what_does_not_fit_by_name():
+    dev = _card()
+    for d, dtype in ((170, torch.float64), (242, torch.float32)):
+        a_t = torch.zeros(d * d, 4, dtype=dtype, device=dev)
+        with pytest.raises(ValueError, match=f"D={d} .*does not fit"):
+            smalllu.lu_factor_t(a_t)
+        with pytest.raises(ValueError, match=f"D={d} .*does not fit"):
+            smalllu.linsolve_fused(a_t, torch.zeros(d, 4, dtype=dtype,
+                                                    device=dev))
 
 
 _GENERATED = {2: "brusselator", 3: "orego", 4: "ham_vdp", 6: "dubins_pmp",

@@ -14,7 +14,11 @@ differs by the same order.
 
 With kernel_lu=True the port runs the plain twins of the CUDA kernels on
 CPU tensors, and the reference with pallas_lu=True runs its pivot-free jnp
-LU off the TPU: the same arithmetic.
+LU off the TPU: the same arithmetic. Pleiades (D = 28, Hairer's initial
+value, 3 lanes with velocities scaled in [0.99, 1.01], t in [0, 0.05],
+Radau5, rtol 1e-6, atol 1e-8) puts blocks of 28 and 56 through them: the
+sizes at which the card runs K1's tile kernel (bench.lu_tile); the same
+tolerances.
 """
 
 import jax.numpy as jnp
@@ -22,13 +26,15 @@ import numpy as np
 import pytest
 import torch
 
+from janus_tpu.models.problems import pleiades_rhs as ref_pleiades_rhs
 from janus_tpu.models.problems import vdp_jac as ref_vdp_jac
 from janus_tpu.models.problems import vdp_rhs as ref_vdp_rhs
 from janus_tpu.solve import Options as RefOptions
 from janus_tpu.solve import solve_ivp as ref_solve_ivp
 from janus_tpu.solve.radau import solve_radau as ref_solve_radau
 from janus_tpu_torch.interop import options_from_jax, tree_to_torch
-from janus_tpu_torch.models.problems import vdp_jac, vdp_rhs
+from janus_tpu_torch.bench import lu_tile
+from janus_tpu_torch.models.problems import pleiades_rhs, vdp_jac, vdp_rhs
 from janus_tpu_torch.solve import Options, solve_adjoint, solve_ivp
 from janus_tpu_torch.solve.radau import solve_radau
 
@@ -125,6 +131,18 @@ def test_solve_ivp_radau9_matches_reference():
                     method="radau9",
                     args=tree_to_torch({"mu": mus}, device="cpu"), jac=vdp_jac,
                     kernel_lu=True, **kw)
+    _compare(got, ref)
+
+
+def test_pleiades_kernel_lu_matches_reference():
+    y0 = lu_tile.pleiades_y0(3, torch.device("cpu")).numpy()
+    kw = dict(rtol=1e-6, atol=1e-8, pivoting=False)
+    ref = ref_solve_ivp(ref_pleiades_rhs, (0.0, 0.05), jnp.asarray(y0),
+                        method="radau5", pallas_lu=True, **kw)
+    got = solve_ivp(pleiades_rhs, (0.0, 0.05),
+                    tree_to_torch(y0, device="cpu"), method="radau5",
+                    kernel_lu=True, **kw)
+    assert bool((got.status == 1).all())
     _compare(got, ref)
 
 

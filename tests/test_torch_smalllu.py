@@ -13,6 +13,14 @@
   linsolve_fused in interpret mode (same arithmetic: f64 rtol 1e-12, f32
   rtol 1e-5 relative to the largest entry), against numpy and against the
   K1+K2 twins, d ∈ {2,3,4,6}, M = 700.
+- Above 16 (where the card runs the tile kernels): d ∈ {17, 24} against
+  the Pallas kernels in interpret mode at M = 40 (marked slow: XLA compiles
+  the unrolled kernels in 37 s at d = 17 and 150-265 s at d = 24), and in
+  the fast tier the K1/K2 twins against what the reference runs off the
+  TPU, janus_tpu.linalg.smalllu's pivot-free lu_factor / lu_solve (the
+  same divisions: f64 rtol 1e-13, f32 1e-5 relative to the largest entry),
+  and the K3 twin against the K1+K2 twins and numpy. Matrices +2·sqrt(d)·I,
+  so that pivot-free elimination stays well conditioned at these d.
 - The kernel wrappers run the twin only for CPU tensors and count no launch
   there; any other device raises.
 - ``import janus_tpu_torch`` loads no jax.
@@ -76,16 +84,27 @@ def test_lu_matches_reference(rng, d, pivot, batch):
                                    rtol=1e-13, atol=1e-13)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "float64"])
-@pytest.mark.parametrize("d", [2, 3, 4, 6])
-def test_twins_match_pallas_and_numpy(rng, d, dtype):
-    m = 700                               # not a multiple of the 512 tile
-    rtol = {"float32": 1e-5, "float64": 1e-12}[dtype]
-    a = rng.standard_normal((m, d, d)) + 5.0 * np.eye(d)
+def _beyond_16(d):
+    """d above 16 runs the tile kernels on the card; its Pallas-interpret
+    reference compiles for minutes (slow tier)."""
+    return pytest.param(d, marks=pytest.mark.slow)
+
+
+def _soa_inputs(rng, m, d, dtype):
+    """a [m, d, d] (+max(5, 2 sqrt(d))·I), b [m, d] and their SoA copies."""
+    a = rng.standard_normal((m, d, d)) + max(5.0, 2.0 * d ** 0.5) * np.eye(d)
     b = rng.standard_normal((m, d))
     a_t = np.ascontiguousarray(a.transpose(1, 2, 0).reshape(d * d, m)
                                ).astype(dtype)
-    b_t = np.ascontiguousarray(b.T).astype(dtype)
+    return a, b, a_t, np.ascontiguousarray(b.T).astype(dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("d", [2, 3, 4, 6, _beyond_16(17), _beyond_16(24)])
+def test_twins_match_pallas_and_numpy(rng, d, dtype):
+    m = 700 if d <= 16 else 40            # 700: not a multiple of the tile
+    rtol = {"float32": 1e-5, "float64": 1e-12}[dtype]
+    a, b, a_t, b_t = _soa_inputs(rng, m, d, dtype)
 
     lu_twin = port_ops.lu_factor_t_ref(torch.from_numpy(a_t))
     x_twin = port_ops.lu_solve_t_ref(lu_twin, torch.from_numpy(b_t))
@@ -102,15 +121,11 @@ def test_twins_match_pallas_and_numpy(rng, d, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-@pytest.mark.parametrize("d", [2, 3, 4, 6])
+@pytest.mark.parametrize("d", [2, 3, 4, 6, _beyond_16(17), _beyond_16(24)])
 def test_linsolve_fused_twin_matches_pallas_and_numpy(rng, d, dtype):
-    m = 700                               # not a multiple of the 512 tile
+    m = 700 if d <= 16 else 40            # 700: not a multiple of the tile
     rtol = {"float32": 1e-5, "float64": 1e-12}[dtype]
-    a = rng.standard_normal((m, d, d)) + 5.0 * np.eye(d)
-    b = rng.standard_normal((m, d))
-    a_t = np.ascontiguousarray(a.transpose(1, 2, 0).reshape(d * d, m)
-                               ).astype(dtype)
-    b_t = np.ascontiguousarray(b.T).astype(dtype)
+    a, b, a_t, b_t = _soa_inputs(rng, m, d, dtype)
 
     x_twin = port_ops.linsolve_fused_ref(torch.from_numpy(a_t),
                                          torch.from_numpy(b_t)).numpy()
@@ -125,6 +140,35 @@ def test_linsolve_fused_twin_matches_pallas_and_numpy(rng, d, dtype):
                                atol=10 * rtol * scale)
     expect = np.linalg.solve(a, b[..., None])[..., 0]
     np.testing.assert_allclose(x_twin.T.astype(np.float64), expect,
+                               rtol=100 * rtol, atol=100 * rtol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("d", [17, 24])
+def test_twins_beyond_16_match_reference_lu(rng, d, dtype):
+    """K1/K2 twins against the reference's off-TPU pivot-free LU, K3's
+    against the K1+K2 twins and numpy, at d where the card runs the tile
+    kernels."""
+    m = 40
+    rtol = {"float32": 1e-5, "float64": 1e-13}[dtype]
+    a, b, a_t, b_t = _soa_inputs(rng, m, d, dtype)
+    lu_twin = port_ops.lu_factor_t_ref(torch.from_numpy(a_t)).numpy()
+    x_twin = port_ops.lu_solve_t_ref(torch.from_numpy(lu_twin),
+                                     torch.from_numpy(b_t)).numpy()
+    lu_r, piv_r = ref_lu.lu_factor(jnp.asarray(a_t.T.reshape(m, d, d)),
+                                   pivot=False)
+    x_r = ref_lu.lu_solve(lu_r, piv_r, jnp.asarray(b_t.T))
+    lu_r = np.asarray(lu_r).reshape(m, d * d).T
+    np.testing.assert_allclose(lu_twin, lu_r, rtol=rtol,
+                               atol=rtol * np.abs(lu_r).max())
+    np.testing.assert_allclose(x_twin, np.asarray(x_r).T, rtol=rtol,
+                               atol=rtol * np.abs(x_twin).max())
+    x_fused = port_ops.linsolve_fused_ref(torch.from_numpy(a_t),
+                                          torch.from_numpy(b_t)).numpy()
+    np.testing.assert_allclose(x_fused, x_twin, rtol=10 * rtol,
+                               atol=10 * rtol * np.abs(x_twin).max())
+    expect = np.linalg.solve(a, b[..., None])[..., 0]
+    np.testing.assert_allclose(x_fused.T.astype(np.float64), expect,
                                rtol=100 * rtol, atol=100 * rtol)
 
 
